@@ -7,22 +7,29 @@ Phases (any failure raises, and the script exits non-zero without a result):
 
 1. the card's name and power limit;
 2. build the fused-window kernel from ``josefine_tpu_torch/ops/csrc`` with
-   nvcc (timed);
+   nvcc (timed); print ``ptxas -v``'s registers, spills and shared memory
+   and the occupancy calculator's resident warps per SM for every group size
+   the run uses;
 3. parity on the card: the kernel against its plain PyTorch version on the
    same CUDA tensors, every state and inbox leaf and all five window totals
    exactly equal, over (4096, 5) and (4096, 3) with pre-vote on and off,
    partial membership with crashes and restarts, ``peer_fresh`` (1, 0, 1) at
-   ``hb_ticks=32``, window chaining (2 x 10 ticks == 20 ticks), and a P that
-   is not a multiple of the block's partition count;
+   ``hb_ticks=32``, window chaining (2 x 10 ticks == 20 ticks), P that leave
+   the last warp partly empty (1003 and 100,003 at N = 5), and N = 1, 4, 7
+   and 16, the edges of the kernel's ``32 // N`` groups per warp;
 4. the main path at full size: the headline benchmark
    (``josefine_tpu_torch.bench``, P = 100,000 groups of N = 5, 500-tick
    windows) with the launch count set to 0 just before and read just after.
    It must have launched the kernel, leave exactly one live leader per group
    and commit blocks. Then one more 500-tick window from the final state
    through the kernel and through the plain version: exact equality, the
-   kernel's own time (CUDA events around the launch alone), the whole
-   wrapper call's and the plain version's. The kernel's bound counts the
-   instructions of its compiled tick loop (``cuobjdump -sass``).
+   kernel's own time (CUDA events around the launch alone) and the whole
+   wrapper call's, median of 3 each, the host time of building the launch's
+   arguments, and the plain version's time. The kernel's bound counts the
+   instructions of a compiled tick loop (``cuobjdump -sass``): pipe by pipe,
+   the lesser of this kernel's count and the first kernel's. Last, the same
+   window at other block shapes (``tile``): each must give the same result,
+   with its residency, waves and time.
 
 The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
@@ -45,6 +52,19 @@ SMS, CLOCK_HZ = 132, 1.98e9
 ALU_LANES, IMAD_LANES, ISSUE_LANES = 64, 64, 128
 HBM_BYTES_PER_S = 3.35e12
 
+# Per node-tick on the shortest path through the tick loop at N = 5, counted
+# by tick_loop_sass on the first kernel (one thread per node, delivery
+# through the block with two block barriers per tick, 195 registers; run on
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, section 6). The bound takes, pipe
+# by pipe, the lesser of this and the count of the kernel under test: the
+# least work any version has needed for the same window. It moves only when a
+# version needs less work than every one before it, and never above either.
+FIRST_KERNEL_PATH = {"alu": 1025, "imad": 108, "issued": 1282}
+# The group sizes phase 3 runs, and the block shapes (groups per block)
+# phase 4 compares at N = 5: 1 to 8 warps of 6 groups.
+RUN_SIZES = (1, 3, 4, 5, 7, 16)
+TILES = (6, 12, 18, 24, 30, 36, 48)
+
 # SASS opcodes by where they run. Memory, control, moves, conversions and the
 # special-function unit are off the integer ALU pipe; uniform-datapath
 # opcodes (U...) run once per warp. Every instruction takes an issue slot.
@@ -62,14 +82,19 @@ def tick_loop_sass(so_path: str, n: int) -> dict:
     """Per-thread instruction counts of one tick of ``fused_window_kernel<n>``,
     read from the SASS that ``cuobjdump`` prints for the built library.
 
-    The tick loop is the backward branch whose body holds the block barriers
-    (two per tick; an unrolled loop holds 2k barriers for k ticks). Inside
-    it, the outermost forward branches are the kernel's ``active`` guards,
-    which every thread of a full block passes; the forward branches nested
-    in them skip data-dependent parts of the tick body. ``issued``, ``alu``
-    and ``imad`` count the shortest path, with every such part skipped, so
-    they are at most what any tick runs; ``issued_all`` counts every
-    instruction of the body."""
+    The tick loop is the largest backward branch whose body stores to
+    shared memory: the delivery, which every tick makes. A kernel that
+    delivers through the block holds two block barriers per tick (2k for a
+    loop unrolled to k ticks). One that delivers within the warp holds no
+    barrier instruction (nvcc makes its ``__syncwarp`` a NOP where the warp
+    has reconverged) and keeps one tick per body (``#pragma unroll 1``).
+    Inside the loop, the outermost forward branches are the kernel's
+    ``active`` guards, which every thread of a full warp passes; the forward
+    branches nested in them skip data-dependent parts of the tick body.
+    ``issued``, ``alu`` and ``imad`` count the shortest path, with every such
+    part skipped, so they are at most what any tick runs; ``issued_all`` and
+    ``alu_all`` count every instruction of the body, what a warp whose
+    threads take every part between them runs."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -100,14 +125,14 @@ def tick_loop_sass(so_path: str, n: int) -> dict:
     best = None
     for head, tail in ((t, a) for a, t in branches if t <= a):
         loop = [x for x in instrs if head <= x[0] <= tail]
-        bars = sum(op == "BAR" for _, op, _ in loop)
-        if bars < 2:
+        if not any(op == "STS" for _, op, _ in loop):
             continue
         fwd = [(a, t) for a, t in branches if head <= a < t <= tail]
         nested = [(a, t) for a, t in fwd
                   if any(a2 < a and t <= t2 for a2, t2 in fwd if (a2, t2) != (a, t))]
         path = [x for x in loop if not any(a < x[0] < t for a, t in nested)]
-        k = bars / 2
+        bars = sum(op == "BAR" for _, op, _ in loop)
+        k = bars / 2 if bars else 1.0
         per_tick = {
             "ticks_per_body": k,
             "issued": len(path) / k,
@@ -115,6 +140,8 @@ def tick_loop_sass(so_path: str, n: int) -> dict:
                        for _, o, _ in path) / k,
             "imad": sum(o in _IMAD for _, o, _ in path) / k,
             "issued_all": len(loop) / k,
+            "alu_all": sum(o not in _NOT_ALU and o not in _IMAD and not o.startswith("U")
+                           for _, o, _ in loop) / k,
             "skippable_parts": len(nested),
         }
         if best is None or per_tick["issued_all"] > best["issued_all"]:
@@ -150,15 +177,15 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    _build.build_cuda()
+    so = _build.build_cuda()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})",
           flush=True)
-    for n in (3, 5):
-        regs, max_threads, local = fused_step.kernel_info(n)
-        print(f"kernel N={n}: {regs} registers/thread, {local} B local/thread, "
-              f"max {max_threads} threads/block, "
-              f"{fused_step.parts_per_block(n, fused_step.DEFAULT_TILE)} partitions/block",
-              flush=True)
+    for n in RUN_SIZES:
+        rep = _build.ptxas_report(n)
+        info = fused_step.kernel_info(n)
+        print(f"kernel N={n}: ptxas {rep}; {info} [{card}]", flush=True)
+        if rep["spill_store_bytes"] or rep["spill_load_bytes"] or info["local_bytes"]:
+            raise AssertionError(f"fused_window_kernel<{n}> spills: {rep}, {info}")
 
     # ---- 3. parity: kernel == plain version on the same CUDA tensors ----
     def setup(P, N, member=None, **kw):
@@ -219,9 +246,12 @@ def main() -> int:
     require_equal("window chaining: 2 x 10 ticks == 20 ticks",
                   (b[0], b[1], {k: a[2][k] + b[2][k] for k in a[2]}), whole)
 
-    B = fused_step.parts_per_block(5, fused_step.DEFAULT_TILE)
-    check(f"P=1003 N=5 (not a multiple of {B} partitions/block), 50 ticks",
-          *setup(1003, 5), 50)
+    for P in (1003, 100_003):
+        check(f"P={P} N=5 (last warp holds {P % fused_step.groups_per_warp(5)} of "
+              f"{fused_step.groups_per_warp(5)} groups), 50 ticks", *setup(P, 5), 50)
+    for N in (1, 4, 7, 16):
+        check(f"P=4096 N={N} ({fused_step.groups_per_warp(N)} groups per warp), 50 ticks",
+              *setup(4096, N), 50)
 
     # ---- 4. the main path at full size ----
     fused_step.launches = 0
@@ -263,37 +293,74 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, a.elapsed_time(b)
 
-    # The whole wrapper call, then the kernel alone (events around the launch
-    # only; median of 3), then the plain version.
-    _, call_ms = timed(fused_step.run_ticks_fused)
+    # The whole wrapper call and the kernel alone (events around the launch
+    # only), median of 3 each, then the plain version.
+    call_ms = sorted(timed(fused_step.run_ticks_fused)[1] for _ in range(3))[1]
     runs = [fused_step.run_ticks_fused_timed(params, member, state, inbox, props, ticks)
             for _ in range(3)]
     ms = sorted(r[3] for r in runs)[1]
+    marshal_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fused_step._marshal(params, member, state, inbox, props, ticks, None,
+                            fused_step.warps_per_block(N, fused_step.DEFAULT_TILE))
+        marshal_ms.append((time.perf_counter() - t0) * 1e3)
     want, plain_ms = timed(fused_step.run_ticks_fused_ref)
     max_err = require_equal(f"P={P} N={N}, {ticks} ticks from the main path's state",
                             runs[0][:3], want)
     print(f"kernel alone {ms:.3f} ms (3 runs: {sorted(r[3] for r in runs)}); whole wrapper "
-          f"call {call_ms:.3f} ms, so the wrapper adds {call_ms - ms:.3f} ms; plain version "
-          f"{plain_ms:.1f} ms per {ticks}-tick window [{card}]", flush=True)
+          f"call {call_ms:.3f} ms, so the wrapper adds {call_ms - ms:.3f} ms, of which "
+          f"building the launch's arguments takes {sorted(marshal_ms)[1]:.3f} ms of host time "
+          f"(median of 3); plain version {plain_ms:.1f} ms per {ticks}-tick window [{card}]",
+          flush=True)
+    info = fused_step.kernel_info(N)
+    warps = -(-P // fused_step.groups_per_warp(N))
+    blocks = -(-warps // info["warps_per_block"])
+    print(f"launch shape at P={P} N={N}: {warps} warps of {fused_step.groups_per_warp(N)} "
+          f"groups in {blocks} blocks of {info['warps_per_block']} warps; "
+          f"{info['resident_warps_per_sm']} resident warps/SM, so "
+          f"{blocks / (SMS * info['resident_blocks_per_sm']):.3f} waves on {SMS} SMs",
+          flush=True)
 
     # Bound: the larger of the bytes the window must move (every input leaf
     # read once, every output leaf written once) over HBM bandwidth, and the
-    # instructions of the compiled tick loop over the rate of the busiest of
-    # the integer ALU pipe, the IMAD pipe and instruction issue.
+    # least instruction count per node-tick (pipe by pipe, this kernel's or
+    # the first kernel's) over the rate of the busiest of the integer ALU
+    # pipe, the IMAD pipe and instruction issue.
     ins = state.leaves() + inbox.leaves() + [member, props]
     outs = want[0].leaves() + want[1].leaves()
     nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    loop = tick_loop_sass(_build.build_cuda(), N)
+    loop = tick_loop_sass(so, N)
+    least = {k: min(loop[k], FIRST_KERNEL_PATH[k]) for k in FIRST_KERNEL_PATH}
     node_ticks = ticks * P * N
-    pipe_ms = {name: node_ticks * loop[name] / (lanes * SMS * CLOCK_HZ) * 1e3
+    pipe_ms = {name: node_ticks * least[name] / (lanes * SMS * CLOCK_HZ) * 1e3
                for name, lanes in (("alu", ALU_LANES), ("imad", IMAD_LANES),
                                    ("issued", ISSUE_LANES))}
     ops_ms = max(pipe_ms.values())
-    print(f"tick loop SASS at N={N}, per node-tick: {loop}; over {node_ticks:.4g} "
-          f"node-ticks: " + ", ".join(f"{k} {v:.3f} ms" for k, v in pipe_ms.items())
-          + f"; bytes {nbytes} -> {bytes_ms:.4f} ms; bound {max(bytes_ms, ops_ms):.3f} ms "
-          f"[{card}]", flush=True)
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"tick loop SASS at N={N}, per node-tick: this kernel {loop}; first kernel "
+          f"{FIRST_KERNEL_PATH}; least {least}; over {node_ticks:.4g} node-ticks: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in pipe_ms.items())
+          + f"; bytes {nbytes} -> {bytes_ms:.4f} ms; bound {bound_ms:.3f} ms; "
+          f"the kernel at {bound_ms / ms:.1%} of it [{card}]", flush=True)
+    # Not a bound: the ALU pipe's time if every warp ran every part of the
+    # tick body, idle lanes included (a warp's instruction costs its 32 lanes).
+    alu_all_ms = warps * ticks * loop["alu_all"] * 32 / (ALU_LANES * SMS * CLOCK_HZ) * 1e3
+    print(f"every part taken by every warp: ALU pipe {alu_all_ms:.3f} ms per window, "
+          f"the kernel at {ms / alu_all_ms:.1%} of that [{card}]", flush=True)
+
+    # The same window at other block shapes: the result must not move.
+    for tile in TILES:
+        shape = fused_step.kernel_info(N, tile)
+        got = [fused_step.run_ticks_fused_timed(params, member, state, inbox, props, ticks,
+                                                tile=tile) for _ in range(3)]
+        require_equal(f"tile {tile}", got[0][:3], want)
+        blocks_t = -(-warps // shape["warps_per_block"])
+        print(f"tile {tile}: {shape['warps_per_block']} warps/block, "
+              f"{shape['resident_warps_per_sm']} resident warps/SM, "
+              f"{blocks_t / (SMS * shape['resident_blocks_per_sm']):.3f} waves, kernel alone "
+              f"{sorted(r[3] for r in got)[1]:.3f} ms (median of 3) [{card}]", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "fused_window",
@@ -304,9 +371,12 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": None,
+        "registers": info["registers"],
+        "resident_warps_per_sm": info["resident_warps_per_sm"],
+        "ticks_per_body": loop["ticks_per_body"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

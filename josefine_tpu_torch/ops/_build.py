@@ -4,6 +4,8 @@ Two libraries, each with a plain C interface:
 
 * ``libfused_step.so`` — the Hopper kernel, ``nvcc`` for ``sm_90a``
   (``csrc/fused_step.cu``). Built on the machine with the card, never here.
+  ``ptxas -v``'s report of each kernel (registers, spills, shared memory)
+  is kept beside it, in ``libfused_step.so.ptxas.txt``.
 * ``libfused_step_host.so`` — the same tick body compiled by ``g++`` for
   the host emulation the CPU tests run (``csrc/fused_step_host.cpp``).
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +31,7 @@ _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas"]
 
 
@@ -46,9 +49,10 @@ def _sources_mtime() -> float:
     return max(os.path.getmtime(os.path.join(CSRC, f)) for f in os.listdir(CSRC))
 
 
-def _build(lib: str, cmd: list[str]) -> str:
+def _build(lib: str, cmd: list[str], report: bool = False) -> str:
     """Run ``cmd + [-o tmp]`` unless ``build/lib`` is newer than every
-    source; returns the library's path."""
+    source; returns the library's path. With ``report``, the compiler's
+    stderr is kept in ``build/lib.ptxas.txt``."""
     path = os.path.join(BUILD_DIR, lib)
     if os.path.exists(path) and os.path.getmtime(path) >= _sources_mtime():
         return path
@@ -58,14 +62,43 @@ def _build(lib: str, cmd: list[str]) -> str:
     res = subprocess.run(full, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"build of {lib} failed:\n{' '.join(full)}\n{res.stderr}")
+    if report:
+        with open(f"{tmp}.txt", "w") as f:
+            f.write(res.stderr)
+        os.replace(f"{tmp}.txt", f"{path}.ptxas.txt")
     os.replace(tmp, path)
     return path
 
 
 def build_cuda() -> str:
     """Compile the Hopper kernel; returns the .so path."""
-    return _build("libfused_step.so",
-                  [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC, "fused_step.cu")])
+    return _build("libfused_step.so", [_nvcc(), *NVCC_FLAGS, os.path.join(CSRC, "fused_step.cu")],
+                  report=True)
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_NUM = {
+    "registers": re.compile(r"Used (\d+) registers"),
+    "stack_bytes": re.compile(r"(\d+) bytes stack frame"),
+    "spill_store_bytes": re.compile(r"(\d+) bytes spill stores"),
+    "spill_load_bytes": re.compile(r"(\d+) bytes spill loads"),
+    "static_smem_bytes": re.compile(r"(\d+) bytes smem"),
+}
+
+
+def ptxas_report(n: int) -> dict[str, int]:
+    """``ptxas -v``'s figures for ``fused_window_kernel<n>`` in the built
+    library: registers/thread, stack, spill stores and loads, static shared
+    memory (the mailbox is dynamic shared memory, sized at launch)."""
+    with open(os.path.join(BUILD_DIR, "libfused_step.so.ptxas.txt")) as f:
+        text = f.read()
+    sym = f"fused_window_kernelILi{n}EE"
+    chunks = _PTXAS_ENTRY.split(text)
+    for name, body in zip(chunks[1::2], chunks[2::2]):
+        if sym in name:
+            return {k: int(m.group(1)) if (m := rx.search(body)) else 0
+                    for k, rx in _PTXAS_NUM.items()}
+    raise KeyError(f"no ptxas report for fused_window_kernel<{n}>")
 
 
 def build_host() -> str:
@@ -75,9 +108,9 @@ def build_host() -> str:
 
 
 _WINDOW_ARGS = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_void_p),
-                ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p]
+                ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _load(key: str, build, declare) -> ctypes.CDLL:
@@ -94,7 +127,8 @@ def _load(key: str, build, declare) -> ctypes.CDLL:
 def _declare_cuda(lib) -> None:
     lib.josefine_fused_window.argtypes = _WINDOW_ARGS + [ctypes.c_void_p]
     lib.josefine_fused_window.restype = ctypes.c_int
-    lib.josefine_fused_kernel_info.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.josefine_fused_kernel_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                               ctypes.POINTER(ctypes.c_int)]
     lib.josefine_fused_kernel_info.restype = ctypes.c_int
     lib.josefine_cuda_error_string.argtypes = [ctypes.c_int]
     lib.josefine_cuda_error_string.restype = ctypes.c_char_p

@@ -8,8 +8,9 @@
 // One call advances ONE node of one group by one tick: it folds the node's
 // inbox row (one message from each src, in src order), runs the timers, the
 // election tally, minting and the quorum commit, and fills the node's outbox
-// row (one message to each dst). Delivery between the N nodes of a group is
-// the caller's job.
+// row (one message to each dst). Messages are read from and written to the
+// group's mailbox through a MailRow, which the kernel points at shared
+// memory and the host emulation at a host array.
 //
 // Integer rules: the id, term and timer arithmetic wraps as jnp int32 does,
 // so additions that can wrap go through uint32 (signed overflow is undefined
@@ -18,6 +19,7 @@
 // Every loop runs over a compile-time N and is unrolled, so the per-peer
 // rows stay in registers; the node's own index `me` is a runtime value and
 // is only ever compared against, never used to index a register array.
+// Per-peer booleans (votes, membership, pending replies) are N-bit masks.
 #pragma once
 
 #include <stdint.h>
@@ -36,14 +38,18 @@ constexpr int MSG_NONE = 0, MSG_VOTE_REQ = 1, MSG_VOTE_RESP = 2, MSG_APPEND = 3,
               MSG_APPEND_RESP = 4, MSG_PREVOTE_REQ = 5, MSG_PREVOTE_RESP = 6;
 constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2, PRECANDIDATE = 3;
 
-constexpr int MAX_N = 16;     // the config cap on group size
 constexpr int N_STATE = 18;   // NodeState leaves, in jax.tree.leaves order
 constexpr int N_INBOX = 9;    // Msgs leaves: kind term x.t x.s y.t y.s z.t z.s ok
 constexpr int N_METRICS = 5;  // accepted_blocks accepted_msgs minted commit_delta became_leader
 constexpr int N_PARAMS = 5;   // timeout_min timeout_max hb_ticks auto_proposals prevote
+constexpr int LEAF_ALIVE = 11, LEAF_VOTES = 13;  // the bool (one byte) state leaves
 
 // Message lanes, in Msgs leaf order.
 enum { F_KIND, F_TERM, F_XT, F_XS, F_YT, F_YS, F_ZT, F_ZS, F_OK };
+
+// Whole groups per warp: no group's nodes straddle two warps.
+template <int N>
+__host__ __device__ constexpr int groups_per_warp() { return 32 / N; }
 
 struct Params {
   int timeout_min, timeout_max, hb_ticks, auto_proposals, prevote;
@@ -55,18 +61,51 @@ struct Params {
   uint32_t peer_fresh;
 };
 
+// What a node knows of its group for a whole window: membership is fixed
+// while the window runs.
+struct Group {
+  uint32_t member;  // bit j: slot j is a member
+  uint32_t peers;   // member slots other than me
+  int quorum;       // popcount(member) / 2 + 1
+  bool my_member;
+};
+
 template <int N>
 struct Node {
   int term, voted_for, role, leader, head_t, head_s, commit_t, commit_s;
   int elapsed, timeout, hb_elapsed, alive;
   uint32_t seed;
-  int votes[N], match_t[N], match_s[N], nxt_t[N], nxt_s[N];
+  uint32_t votes;  // bit j: slot j granted us its (pre-)vote
+  int match_t[N], match_s[N], nxt_t[N], nxt_s[N];
+};
+
+// One node's window onto its warp's mailbox. A mailbox buffer is laid out
+// [N_INBOX][G * N (dst lane)][N (src)], so field f of the message from src
+// is rd[f * FS + src], and the message to dst goes to wr[f * FS + dst * N].
+template <int N>
+struct MailRow {
+  static constexpr int FS = groups_per_warp<N>() * N * N;  // one field of one buffer
+  const int* rd;  // this node's inbox row in the buffer being read
+  int* wr;        // column `me` of its group in the buffer being written
+  JF_HD int get(int f, int src) const { return rd[f * FS + src]; }
+  JF_HD void put(int f, int dst, int v) const { wr[f * FS + dst * N] = v; }
 };
 
 JF_HD int wadd(int a, int b) { return (int)((uint32_t)a + (uint32_t)b); }
 JF_HD int wsub(int a, int b) { return (int)((uint32_t)a - (uint32_t)b); }
+JF_HD uint32_t bit(uint32_t mask, int j) { return (mask >> j) & 1u; }
 
-// Block-id order: term-major (t, s) compares.
+JF_HD int popc(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// Block-id order: term-major (t, s) compares, both signed, as pairs of 32-bit
+// compares. Packing (t, s) into one order-preserving 64-bit key gave more
+// instructions in the tick loop at N = 5, not fewer (fused_step.cu's note).
 JF_HD bool bid_eq(int at, int as, int bt, int bs) { return (at == bt) & (as == bs); }
 JF_HD bool bid_lt(int at, int as, int bt, int bs) { return (at < bt) | ((at == bt) & (as < bs)); }
 JF_HD bool bid_le(int at, int as, int bt, int bs) { return (at < bt) | ((at == bt) & (as <= bs)); }
@@ -87,31 +126,81 @@ JF_HD int draw_timeout(uint32_t seed, uint32_t term, const Params& p) {
   return (int)((uint32_t)p.timeout_min + h % span);
 }
 
-// One tick of node `me`. ib[f][src]: the message from src in lane f;
-// out[f][dst]: the message to dst. met accumulates the five window metrics.
 template <int N>
-JF_HD void node_tick(const Params& P, const int (&member)[N], int me, int props,
-                     Node<N>& st, const int (&ib)[N_INBOX][N], int (&out)[N_INBOX][N],
-                     int (&met)[N_METRICS]) {
-  const Node<N> st_in = st;
+JF_HD Group make_group(uint32_t member, int me) {
+  Group g;
+  g.member = member;
+  g.peers = member & ~(1u << me);
+  g.quorum = popc(member) / 2 + 1;
+  g.my_member = bit(member, me) != 0;
+  return g;
+}
+
+// The quorum-th largest match among members (the largest id that a quorum
+// of members has reached), floored at (-1, -1); non-members count as the
+// lowest id. rank[i] counts the ids ranked above slot i's (larger, or equal
+// at a lower slot), so ranks are 0..N-1 and the id of rank quorum - 1 is the
+// one. Each pair is compared once, N(N-1)/2 compares, where counting each
+// id's support compares all N² pairs. The pick is a select per slot on its
+// rank: a pick by position (kt[quorum - 1]) is an indexed read, which nvcc
+// serves from local memory.
+template <int N>
+JF_HD void quorum_match(const Node<N>& st, const Group& grp, int& best_t, int& best_s) {
+  constexpr int LOW = (int)0x80000000;
+  int kt[N], ks[N], rank[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const bool m = bit(grp.member, i) != 0;
+    kt[i] = m ? st.match_t[i] : LOW;
+    ks[i] = m ? st.match_s[i] : LOW;
+    rank[i] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) {
+      const bool up = bid_lt(kt[i], ks[i], kt[j], ks[j]);  // j ranks above i
+      rank[i] += (int)up;
+      rank[j] += (int)!up;
+    }
+  }
+  int qt = LOW, qs = LOW;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (rank[i] == grp.quorum - 1) {
+      qt = kt[i];
+      qs = ks[i];
+    }
+  }
+  const bool above = bid_lt(-1, -1, qt, qs);
+  best_t = above ? qt : -1;
+  best_s = above ? qs : -1;
+}
+
+// One tick of node `me`. box.get(f, src): the message from src in lane f;
+// box.put(f, dst, v): the message to dst. met accumulates the five window
+// metrics. A crashed node (alive == 0) changes none of its state.
+template <int N>
+JF_HD void node_tick(const Params& P, const Group& grp, int me, int props, Node<N>& st,
+                     const MailRow<N>& box, int (&met)[N_METRICS]) {
   const int commit_s0 = st.commit_s;
   const bool alive = st.alive != 0;
-  const bool my_member = member[me] != 0;
   const bool pv = P.prevote == 1;
 
-  // ---- 1. inbox fold (sequential over srcs) ----
-  int rep_kind[N], rep_term[N], rep_xt[N], rep_xs[N], rep_ok[N];
+  // ---- 1. inbox fold (sequential over srcs); each reply goes straight to
+  // the outbox, and rep_mask remembers which lanes hold one ----
+  uint32_t rep_mask = 0;
   int acc_blocks = 0, acc_msgs = 0;
 #pragma unroll
   for (int src = 0; src < N; ++src) {
-    const int kind = ib[F_KIND][src], mterm = ib[F_TERM][src];
-    const int xt = ib[F_XT][src], xs = ib[F_XS][src];
-    const int yt = ib[F_YT][src], ys = ib[F_YS][src];
-    const int zt = ib[F_ZT][src], zs = ib[F_ZS][src];
-    const int mok = ib[F_OK][src];
+    const int kind = box.get(F_KIND, src), mterm = box.get(F_TERM, src);
+    const int xt = box.get(F_XT, src), xs = box.get(F_XS, src);
+    const int yt = box.get(F_YT, src), ys = box.get(F_YS, src);
+    const int zt = box.get(F_ZT, src), zs = box.get(F_ZS, src);
+    const int mok = box.get(F_OK, src);
 
     // Messages from non-member slots are masked out (runtime membership).
-    const bool valid = (kind != MSG_NONE) & alive & (member[src] != 0);
+    const bool valid = (kind != MSG_NONE) & alive & (bit(grp.member, src) != 0);
     // Leader-lease stickiness (pre-vote mode), from pre-adoption state.
     const bool sticky = pv & (st.leader != -1) & (st.elapsed < P.timeout_min);
     // Universal term catch-up, strictly greater only.
@@ -124,8 +213,7 @@ JF_HD void node_tick(const Params& P, const int (&member)[N], int me, int props,
       st.leader = -1;
       st.elapsed = 0;
       st.timeout = draw_timeout(st.seed, (uint32_t)mterm, P);
-#pragma unroll
-      for (int k = 0; k < N; ++k) st.votes[k] = 0;
+      st.votes = 0;
     }
     const bool cur = valid & (mterm == st.term);
 
@@ -143,10 +231,10 @@ JF_HD void node_tick(const Params& P, const int (&member)[N], int me, int props,
     const bool is_pvr = valid & (kind == MSG_PREVOTE_REQ);
     const bool pv_grant = is_pvr & (mterm > st.term) & bid_le(st.head_t, st.head_s, xt, xs) & !sticky;
 
-    // VoteResponse / PreVoteResponse tally into the same ballot row.
+    // VoteResponse / PreVoteResponse tally into the same ballot.
     const bool is_vresp = cur & (kind == MSG_VOTE_RESP) & (st.role == CANDIDATE);
     const bool is_pvresp = valid & (kind == MSG_PREVOTE_RESP) & (st.role == PRECANDIDATE);
-    st.votes[src] |= (int)((is_vresp | is_pvresp) & (mok == 1));
+    st.votes |= (uint32_t)((is_vresp | is_pvresp) & (mok == 1)) << src;
 
     // AppendEntries / heartbeat.
     const bool is_ae_kind = valid & (kind == MSG_APPEND);
@@ -188,14 +276,21 @@ JF_HD void node_tick(const Params& P, const int (&member)[N], int me, int props,
       }
     }
 
-    // Reply to src (responses only; y and z stay zero).
-    rep_kind[src] = is_vr ? MSG_VOTE_RESP
-                    : is_ae_kind ? MSG_APPEND_RESP
-                    : is_pvr ? MSG_PREVOTE_RESP : MSG_NONE;
-    rep_term[src] = st.term;
-    rep_xt[src] = accept ? st.head_t : st.commit_t;
-    rep_xs[src] = accept ? st.head_s : st.commit_s;
-    rep_ok[src] = (int)(grant | accept | pv_grant);
+    // Reply to src (responses only; y and z stay zero). A send in step 6
+    // may overwrite it.
+    const int rep_kind = is_vr ? MSG_VOTE_RESP
+                         : is_ae_kind ? MSG_APPEND_RESP
+                         : is_pvr ? MSG_PREVOTE_RESP : MSG_NONE;
+    rep_mask |= (uint32_t)(rep_kind != MSG_NONE) << src;
+    box.put(F_KIND, src, rep_kind);
+    box.put(F_TERM, src, st.term);
+    box.put(F_XT, src, accept ? st.head_t : st.commit_t);
+    box.put(F_XS, src, accept ? st.head_s : st.commit_s);
+    box.put(F_YT, src, 0);
+    box.put(F_YS, src, 0);
+    box.put(F_ZT, src, 0);
+    box.put(F_ZS, src, 0);
+    box.put(F_OK, src, (int)(grant | accept | pv_grant));
     acc_blocks = wadd(acc_blocks, span);
     acc_msgs += (int)accept;
   }
@@ -206,12 +301,12 @@ JF_HD void node_tick(const Params& P, const int (&member)[N], int me, int props,
   {
     // Aggregate keepalive: peer_fresh[clip(leader, 0, N-1)] != 0.
     const int lc = st.leader < 0 ? 0 : (st.leader > N - 1 ? N - 1 : st.leader);
-    const bool pf = ((P.peer_fresh >> lc) & 1u) != 0;
-    const bool ka = (st.leader >= 0) & pf & (st.hb_elapsed < (int)((uint32_t)P.hb_ticks * 8u));
+    const bool ka = (st.leader >= 0) & (bit(P.peer_fresh, lc) != 0) &
+                    (st.hb_elapsed < (int)((uint32_t)P.hb_ticks * 8u));
     if (ka) elapsed = 0;
   }
-  const bool timed_out = alive & my_member & !is_leader & (elapsed >= st.timeout);
-  st.elapsed = timed_out ? 0 : elapsed;
+  const bool timed_out = alive & grp.my_member & !is_leader & (elapsed >= st.timeout);
+  if (alive) st.elapsed = timed_out ? 0 : elapsed;
   if (timed_out) {
     // Redraw folding in the previous timeout (decorrelates stalled pre-vote
     // rounds): (term + 1) ^ (timeout << 8), wrapped to 32 bits.
@@ -223,34 +318,24 @@ JF_HD void node_tick(const Params& P, const int (&member)[N], int me, int props,
       st.term = wadd(st.term, 1);
       st.voted_for = me;
     }
-#pragma unroll
-    for (int k = 0; k < N; ++k) st.votes[k] = (int)(k == me);
+    st.votes = 1u << me;
   }
   const bool just_cand = timed_out & !pv;
   const bool just_precand = timed_out & pv;
 
   // ---- 3. election tally (pre-vote promotion first) ----
-  int nmember = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) nmember += (int)(member[k] != 0);
-  const int quorum = nmember / 2 + 1;
-  int nvotes = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) nvotes += (int)((st.votes[k] != 0) & (member[k] != 0));
-  const bool pre_elected = alive & (st.role == PRECANDIDATE) & (nvotes >= quorum);
+  const bool pre_elected = alive & (st.role == PRECANDIDATE) &
+                           (popc(st.votes & grp.member) >= grp.quorum);
   if (pre_elected) {
     st.role = CANDIDATE;
     st.timeout = draw_timeout(st.seed, (uint32_t)st.term + 1u, P);
     st.term = wadd(st.term, 1);
     st.voted_for = me;
     st.elapsed = 0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) st.votes[k] = (int)(k == me);
+    st.votes = 1u << me;
   }
-  nvotes = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k) nvotes += (int)((st.votes[k] != 0) & (member[k] != 0));
-  const bool elected = alive & (st.role == CANDIDATE) & (nvotes >= quorum);
+  const bool elected = alive & (st.role == CANDIDATE) &
+                       (popc(st.votes & grp.member) >= grp.quorum);
   if (elected) {
     // Mint a no-op block at the new term; fresh progress rows: match =
     // genesis for peers, nxt = our commit, self entries = our head.
@@ -271,12 +356,13 @@ JF_HD void node_tick(const Params& P, const int (&member)[N], int me, int props,
 
   // ---- 4. proposal minting + self progress row ----
   is_leader = st.role == LEADER;
-  const int minted = (is_leader & alive) ? wadd(props, P.auto_proposals) : 0;
+  const bool live_leader = is_leader & alive;
+  const int minted = live_leader ? wadd(props, P.auto_proposals) : 0;
   if (minted > 0) st.head_t = st.term;
   st.head_s = wadd(st.head_s, minted);
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    if ((k == me) & is_leader) {
+    if ((k == me) & live_leader) {
       st.match_t[k] = st.head_t;
       st.match_s[k] = st.head_s;
       st.nxt_t[k] = st.head_t;
@@ -285,175 +371,194 @@ JF_HD void node_tick(const Params& P, const int (&member)[N], int me, int props,
   }
 
   // ---- 5. quorum commit: k-th largest match (k = quorum) ----
-  int best_t = -1, best_s = -1;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    int support = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      support += (int)((member[j] != 0) &
-                       bid_le(st.match_t[i], st.match_s[i], st.match_t[j], st.match_s[j]));
-    const bool eligible = (member[i] != 0) & (support >= quorum);
-    if (eligible & bid_lt(best_t, best_s, st.match_t[i], st.match_s[i])) {
-      best_t = st.match_t[i];
-      best_s = st.match_s[i];
+  if (live_leader) {
+    int best_t, best_s;
+    quorum_match<N>(st, grp, best_t, best_s);
+    if ((best_t == st.term) & bid_lt(st.commit_t, st.commit_s, best_t, best_s)) {
+      st.commit_t = best_t;
+      st.commit_s = best_s;
     }
   }
-  if (is_leader & alive & (best_t == st.term) & bid_lt(st.commit_t, st.commit_s, best_t, best_s)) {
-    st.commit_t = best_t;
-    st.commit_s = best_s;
-  }
 
-  // ---- 6. outbox ----
+  // ---- 6. outbox: sends overwrite the replies step 1 wrote ----
   const bool hb_due = st.hb_elapsed >= P.hb_ticks;
-  const bool lead_send = is_leader & alive & my_member;
+  const bool lead_send = live_leader & grp.my_member;
   const bool vr_now = (just_cand | pre_elected) & alive & !is_leader;
   const bool pvr_now = just_precand & alive & !is_leader;
 #pragma unroll
   for (int dst = 0; dst < N; ++dst) {
-    const bool is_peer = (member[dst] != 0) & (dst != me);
+    const bool is_peer = bit(grp.peers, dst) != 0;
     const bool send_ae = lead_send & is_peer &
                          (hb_due | bid_lt(st.nxt_t[dst], st.nxt_s[dst], st.head_t, st.head_s));
     const bool bc_vr = vr_now & is_peer;
     // A pending reply outranks our own pre-vote broadcast on that lane.
-    const bool bc_pvr = pvr_now & is_peer & !bc_vr & (rep_kind[dst] == MSG_NONE);
-    const int kind = send_ae ? MSG_APPEND
-                     : bc_vr ? MSG_VOTE_REQ
-                     : bc_pvr ? MSG_PREVOTE_REQ : rep_kind[dst];
-    out[F_KIND][dst] = alive ? kind : MSG_NONE;
-    // PREVOTE_REQ carries the PROPOSED term (current + 1).
-    out[F_TERM][dst] = (send_ae | bc_vr) ? st.term : bc_pvr ? wadd(st.term, 1) : rep_term[dst];
-    out[F_XT][dst] = send_ae ? st.nxt_t[dst] : (bc_vr | bc_pvr) ? st.head_t : rep_xt[dst];
-    out[F_XS][dst] = send_ae ? st.nxt_s[dst] : (bc_vr | bc_pvr) ? st.head_s : rep_xs[dst];
-    out[F_YT][dst] = send_ae ? st.head_t : 0;
-    out[F_YS][dst] = send_ae ? st.head_s : 0;
-    out[F_ZT][dst] = send_ae ? st.commit_t : 0;
-    out[F_ZS][dst] = send_ae ? st.commit_s : 0;
-    out[F_OK][dst] = rep_ok[dst];
-    // Optimistically advance the send pointer to what we just shipped.
+    const bool bc_pvr = pvr_now & is_peer & !bc_vr & (bit(rep_mask, dst) == 0);
+    if (send_ae | bc_vr | bc_pvr) {
+      box.put(F_KIND, dst, send_ae ? MSG_APPEND : bc_vr ? MSG_VOTE_REQ : MSG_PREVOTE_REQ);
+      // PREVOTE_REQ carries the PROPOSED term (current + 1).
+      box.put(F_TERM, dst, bc_pvr ? wadd(st.term, 1) : st.term);
+      box.put(F_XT, dst, send_ae ? st.nxt_t[dst] : st.head_t);
+      box.put(F_XS, dst, send_ae ? st.nxt_s[dst] : st.head_s);
+    }
     if (send_ae) {
+      box.put(F_YT, dst, st.head_t);
+      box.put(F_YS, dst, st.head_s);
+      box.put(F_ZT, dst, st.commit_t);
+      box.put(F_ZS, dst, st.commit_s);
+      // Optimistically advance the send pointer to what we just shipped.
       st.nxt_t[dst] = st.head_t;
       st.nxt_s[dst] = st.head_s;
     }
   }
   // Leaders: broadcast cadence. Followers: ticks since their leader's AE.
-  st.hb_elapsed = (is_leader & hb_due) ? 1 : wadd(st.hb_elapsed, 1);
+  if (alive) st.hb_elapsed = (is_leader & hb_due) ? 1 : wadd(st.hb_elapsed, 1);
 
-  // ---- crashed nodes are frozen entirely ----
-  if (!alive) st = st_in;
   met[0] = wadd(met[0], acc_blocks);
   met[1] = wadd(met[1], acc_msgs);
   met[2] = wadd(met[2], minted);
   met[3] = wadd(met[3], wsub(st.commit_s, commit_s0));
-  met[4] = wadd(met[4], (int)(elected & alive));
+  met[4] = wadd(met[4], (int)elected);
 }
 
 // The arguments of one window, shared by the kernel and the host emulation.
-// Leaves are contiguous int32 in the (P, ...) layout: state leaves (P, N) or
-// (P, N, N) [p, me, peer]; inbox leaves (P, N_dst, N_src).
+// Leaves are contiguous in the (P, ...) layout, each in its own dtype: int32,
+// except alive and votes (bool, one byte). State leaves (P, N) or (P, N, N)
+// [p, me, peer]; inbox leaves (P, N_dst, N_src). The step params stay where
+// the caller keeps them (the card, for the kernel), read by load_params, so
+// a launch needs no copy to the host.
 struct WindowArgs {
-  const int32_t* in[N_STATE + N_INBOX];
-  int32_t* out[N_STATE + N_INBOX];
-  const int32_t* member;  // (P, N) 0/1
+  const void* in[N_STATE + N_INBOX];
+  void* out[N_STATE + N_INBOX];
+  const uint8_t* member;  // (P, N) bool
   const int32_t* props;   // (P, N)
-  int32_t* partials;      // (G, N_METRICS): one row per block of parts_per_block partitions
-  Params params;
+  int32_t* partials;      // (ceil(P / G), N_METRICS): one row per warp of G groups
+  const int32_t* param[N_PARAMS];  // one int32 each, in StepParams field order
+  const int32_t* peer_fresh;       // (N,) int32, or null: the keepalive never fires
   long long num_parts;
   int ticks;
-  int parts_per_block;
 };
 
-// Which state leaves are per-peer rows: votes, match.t, match.s, nxt.t, nxt.s.
-JF_HD bool is_row_leaf(int leaf) { return leaf >= 13; }
+template <int N>
+JF_HD Params load_params(const WindowArgs& a) {
+  Params p;
+  p.timeout_min = *a.param[0];
+  p.timeout_max = *a.param[1];
+  p.hb_ticks = *a.param[2];
+  p.auto_proposals = *a.param[3];
+  p.prevote = *a.param[4];
+  p.peer_fresh = 0;
+  if (a.peer_fresh != nullptr) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) p.peer_fresh |= (uint32_t)(a.peer_fresh[j] != 0) << j;
+  }
+  return p;
+}
+
+JF_HD const int32_t* in_i32(const WindowArgs& a, int leaf) {
+  return static_cast<const int32_t*>(a.in[leaf]);
+}
+JF_HD int32_t* out_i32(const WindowArgs& a, int leaf) { return static_cast<int32_t*>(a.out[leaf]); }
 
 template <int N>
-JF_HD void load_node(const WindowArgs& a, long long p, int me, Node<N>& st,
-                     int (&ib)[N_INBOX][N], int (&member)[N], int& props) {
+JF_HD void load_node(const WindowArgs& a, long long p, int me, Node<N>& st, Group& grp,
+                     int& props) {
   const long long pn = p * N + me;
-  const int32_t* const* in = a.in;
-  st.term = in[0][pn];
-  st.voted_for = in[1][pn];
-  st.role = in[2][pn];
-  st.leader = in[3][pn];
-  st.head_t = in[4][pn];
-  st.head_s = in[5][pn];
-  st.commit_t = in[6][pn];
-  st.commit_s = in[7][pn];
-  st.elapsed = in[8][pn];
-  st.timeout = in[9][pn];
-  st.hb_elapsed = in[10][pn];
-  st.alive = in[11][pn];
-  st.seed = (uint32_t)in[12][pn];
+  st.term = in_i32(a, 0)[pn];
+  st.voted_for = in_i32(a, 1)[pn];
+  st.role = in_i32(a, 2)[pn];
+  st.leader = in_i32(a, 3)[pn];
+  st.head_t = in_i32(a, 4)[pn];
+  st.head_s = in_i32(a, 5)[pn];
+  st.commit_t = in_i32(a, 6)[pn];
+  st.commit_s = in_i32(a, 7)[pn];
+  st.elapsed = in_i32(a, 8)[pn];
+  st.timeout = in_i32(a, 9)[pn];
+  st.hb_elapsed = in_i32(a, 10)[pn];
+  st.alive = static_cast<const uint8_t*>(a.in[LEAF_ALIVE])[pn] != 0;
+  st.seed = (uint32_t)in_i32(a, 12)[pn];
+  const uint8_t* votes = static_cast<const uint8_t*>(a.in[LEAF_VOTES]) + pn * N;
+  const uint8_t* member = a.member + p * N;
+  uint32_t vmask = 0, mmask = 0;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const long long r = pn * N + k;
-    st.votes[k] = in[13][r];
-    st.match_t[k] = in[14][r];
-    st.match_s[k] = in[15][r];
-    st.nxt_t[k] = in[16][r];
-    st.nxt_s[k] = in[17][r];
-#pragma unroll
-    for (int f = 0; f < N_INBOX; ++f) ib[f][k] = in[N_STATE + f][r];
-    member[k] = a.member[p * N + k];
+    vmask |= (uint32_t)(votes[k] != 0) << k;
+    mmask |= (uint32_t)(member[k] != 0) << k;
+    st.match_t[k] = in_i32(a, 14)[r];
+    st.match_s[k] = in_i32(a, 15)[r];
+    st.nxt_t[k] = in_i32(a, 16)[r];
+    st.nxt_s[k] = in_i32(a, 17)[r];
   }
+  st.votes = vmask;
+  grp = make_group<N>(mmask, me);
   props = a.props[pn];
 }
 
 template <int N>
-JF_HD void store_node(const WindowArgs& a, long long p, int me, const Node<N>& st,
-                      const int (&ib)[N_INBOX][N]) {
+JF_HD void store_node(const WindowArgs& a, long long p, int me, const Node<N>& st) {
   const long long pn = p * N + me;
-  int32_t* const* out = a.out;
-  out[0][pn] = st.term;
-  out[1][pn] = st.voted_for;
-  out[2][pn] = st.role;
-  out[3][pn] = st.leader;
-  out[4][pn] = st.head_t;
-  out[5][pn] = st.head_s;
-  out[6][pn] = st.commit_t;
-  out[7][pn] = st.commit_s;
-  out[8][pn] = st.elapsed;
-  out[9][pn] = st.timeout;
-  out[10][pn] = st.hb_elapsed;
-  out[11][pn] = st.alive;
-  out[12][pn] = (int32_t)st.seed;
+  out_i32(a, 0)[pn] = st.term;
+  out_i32(a, 1)[pn] = st.voted_for;
+  out_i32(a, 2)[pn] = st.role;
+  out_i32(a, 3)[pn] = st.leader;
+  out_i32(a, 4)[pn] = st.head_t;
+  out_i32(a, 5)[pn] = st.head_s;
+  out_i32(a, 6)[pn] = st.commit_t;
+  out_i32(a, 7)[pn] = st.commit_s;
+  out_i32(a, 8)[pn] = st.elapsed;
+  out_i32(a, 9)[pn] = st.timeout;
+  out_i32(a, 10)[pn] = st.hb_elapsed;
+  static_cast<uint8_t*>(a.out[LEAF_ALIVE])[pn] = (uint8_t)(st.alive != 0);
+  out_i32(a, 12)[pn] = (int32_t)st.seed;
+  uint8_t* votes = static_cast<uint8_t*>(a.out[LEAF_VOTES]) + pn * N;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const long long r = pn * N + k;
-    out[13][r] = st.votes[k];
-    out[14][r] = st.match_t[k];
-    out[15][r] = st.match_s[k];
-    out[16][r] = st.nxt_t[k];
-    out[17][r] = st.nxt_s[k];
-#pragma unroll
-    for (int f = 0; f < N_INBOX; ++f) out[N_STATE + f][r] = ib[f][k];
+    votes[k] = (uint8_t)bit(st.votes, k);
+    out_i32(a, 14)[r] = st.match_t[k];
+    out_i32(a, 15)[r] = st.match_s[k];
+    out_i32(a, 16)[r] = st.nxt_t[k];
+    out_i32(a, 17)[r] = st.nxt_s[k];
   }
 }
 
+// Node me's in-flight inbox row between device memory and a mailbox buffer
+// (`row` = the buffer + its row offset, fields MailRow<N>::FS apart).
+template <int N>
+JF_HD void load_inbox(const WindowArgs& a, long long p, int me, int* row) {
+  const long long r = (p * N + me) * N;
+#pragma unroll
+  for (int f = 0; f < N_INBOX; ++f)
+#pragma unroll
+    for (int src = 0; src < N; ++src) row[f * MailRow<N>::FS + src] = in_i32(a, N_STATE + f)[r + src];
+}
+
+template <int N>
+JF_HD void store_inbox(const WindowArgs& a, long long p, int me, const int* row) {
+  const long long r = (p * N + me) * N;
+#pragma unroll
+  for (int f = 0; f < N_INBOX; ++f)
+#pragma unroll
+    for (int src = 0; src < N; ++src) out_i32(a, N_STATE + f)[r + src] = row[f * MailRow<N>::FS + src];
+}
+
 // Fill WindowArgs from the C interface's arguments (host side).
-inline WindowArgs make_args(int n, long long num_parts, int ticks, int parts_per_block,
-                            const int32_t* params, const void* const* in_leaves,
+inline WindowArgs make_args(long long num_parts, int ticks, const void* const* params,
+                            const void* peer_fresh, const void* const* in_leaves,
                             void* const* out_leaves, const void* member, const void* props,
                             void* partials) {
   WindowArgs a;
   for (int i = 0; i < N_STATE + N_INBOX; ++i) {
-    a.in[i] = static_cast<const int32_t*>(in_leaves[i]);
-    a.out[i] = static_cast<int32_t*>(out_leaves[i]);
+    a.in[i] = in_leaves[i];
+    a.out[i] = out_leaves[i];
   }
-  a.member = static_cast<const int32_t*>(member);
+  for (int i = 0; i < N_PARAMS; ++i) a.param[i] = static_cast<const int32_t*>(params[i]);
+  a.peer_fresh = static_cast<const int32_t*>(peer_fresh);
+  a.member = static_cast<const uint8_t*>(member);
   a.props = static_cast<const int32_t*>(props);
   a.partials = static_cast<int32_t*>(partials);
-  a.params.timeout_min = params[0];
-  a.params.timeout_max = params[1];
-  a.params.hb_ticks = params[2];
-  a.params.auto_proposals = params[3];
-  a.params.prevote = params[4];
-  a.params.peer_fresh = 0;
-  for (int j = 0; j < n && j < MAX_N; ++j)
-    a.params.peer_fresh |= (uint32_t)(params[N_PARAMS + j] != 0) << j;
   a.num_parts = num_parts;
   a.ticks = ticks;
-  a.parts_per_block = parts_per_block;
   return a;
 }
 

@@ -2,11 +2,15 @@
 // tick body (fused_step.cuh) so the CPU test suite can hold the hand-written
 // body against the JAX package without a card.
 //
-// It loops over the "threads" of each partition (one per node), runs
-// node_tick<N> for each, and then performs the kernel's shared-memory
-// delivery: next_inbox[dst][src] = out[src][dst]. Metrics land in the same
-// (G, 5) per-block partials layout as the kernel's.
-#include <string.h>
+// It emulates the kernel's warps one after another: 32 lanes, G = 32 / N
+// whole groups on the first G * N of them, the rest idle, and the groups
+// past P in the ragged last warp idle too. Each warp has the kernel's
+// double-buffered mailbox, with the same layout and the same MailRow
+// offsets; a tick runs node_tick<N> for every active lane and then swaps the
+// buffers, which is what the kernel's __syncwarp orders. Lanes touch
+// disjoint mailbox slots, so running them in turn gives the kernel's result.
+// Metrics land in the kernel's (ceil(P / G), 5) per-warp partials layout.
+#include <vector>
 
 #include "fused_step.cuh"
 
@@ -14,28 +18,46 @@ namespace josefine {
 
 template <int N>
 int run_host(const WindowArgs& a) {
-  const long long blocks = (a.num_parts + a.parts_per_block - 1) / a.parts_per_block;
-  memset(a.partials, 0, sizeof(int32_t) * N_METRICS * blocks);
-  for (long long p = 0; p < a.num_parts; ++p) {
-    Node<N> st[N];
-    int ib[N][N_INBOX][N];
-    int member[N][N];
-    int props[N];
-    int met[N][N_METRICS] = {};
-    for (int me = 0; me < N; ++me) load_node<N>(a, p, me, st[me], ib[me], member[me], props[me]);
-    for (int t = 0; t < a.ticks; ++t) {
-      int out[N][N_INBOX][N];
-      for (int me = 0; me < N; ++me)
-        node_tick<N>(a.params, member[me], me, props[me], st[me], ib[me], out[me], met[me]);
-      for (int me = 0; me < N; ++me)
-        for (int f = 0; f < N_INBOX; ++f)
-          for (int src = 0; src < N; ++src) ib[me][f][src] = out[src][f][me];
+  constexpr int G = groups_per_warp<N>();
+  constexpr int BOX = N_INBOX * MailRow<N>::FS;
+  const long long warps = (a.num_parts + G - 1) / G;
+  const Params P = load_params<N>(a);
+  std::vector<int> mail(2 * BOX);
+  std::vector<Node<N>> st(32);
+  for (long long wg = 0; wg < warps; ++wg) {
+    Group grp[32];
+    int props[32];
+    bool active[32];
+    int met[32][N_METRICS] = {};
+    int* cur = mail.data();
+    int* nxt = cur + BOX;
+    for (int lane = 0; lane < 32; ++lane) {
+      const int g = lane / N, me = lane % N;
+      const long long p = wg * G + g;
+      active[lane] = g < G && p < a.num_parts;
+      if (!active[lane]) continue;
+      load_node<N>(a, p, me, st[lane], grp[lane], props[lane]);
+      load_inbox<N>(a, p, me, cur + (g * N + me) * N);
     }
-    for (int me = 0; me < N; ++me) {
-      store_node<N>(a, p, me, st[me], ib[me]);
+    for (int t = 0; t < a.ticks; ++t) {
+      for (int lane = 0; lane < 32; ++lane) {
+        if (!active[lane]) continue;
+        const int g = lane / N, me = lane % N;
+        const MailRow<N> box{cur + (g * N + me) * N, nxt + g * N * N + me};
+        node_tick<N>(P, grp[lane], me, props[lane], st[lane], box, met[lane]);
+      }
+      int* const tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    for (int k = 0; k < N_METRICS; ++k) a.partials[wg * N_METRICS + k] = 0;
+    for (int lane = 0; lane < 32; ++lane) {
+      if (!active[lane]) continue;
+      const int g = lane / N, me = lane % N;
+      store_node<N>(a, wg * G + g, me, st[lane]);
+      store_inbox<N>(a, wg * G + g, me, cur + (g * N + me) * N);
       for (int k = 0; k < N_METRICS; ++k)
-        a.partials[(p / a.parts_per_block) * N_METRICS + k] =
-            wadd(a.partials[(p / a.parts_per_block) * N_METRICS + k], met[me][k]);
+        a.partials[wg * N_METRICS + k] = wadd(a.partials[wg * N_METRICS + k], met[lane][k]);
     }
   }
   return 0;
@@ -45,15 +67,17 @@ int run_host(const WindowArgs& a) {
 
 extern "C" {
 
-// The host twin of josefine_fused_window (no stream). Returns 0, or -1 for
-// a group size outside 1..16.
-int josefine_fused_window_host(int n, long long num_parts, int ticks, int parts_per_block,
-                               const int32_t* params, const void* const* in_leaves,
-                               void* const* out_leaves, const void* member,
-                               const void* props, void* partials) {
-  const josefine::WindowArgs a = josefine::make_args(
-      n, num_parts, ticks, parts_per_block, params, in_leaves, out_leaves, member, props,
-      partials);
+// The host twin of josefine_fused_window (no stream; warps_per_block only
+// packs warps onto SMs, so it has no effect here). Returns 0, or -1 for a
+// group size outside 1..16.
+int josefine_fused_window_host(int n, long long num_parts, int ticks, int warps_per_block,
+                               const void* const* params, const void* peer_fresh,
+                               const void* const* in_leaves, void* const* out_leaves,
+                               const void* member, const void* props, void* partials) {
+  (void)warps_per_block;
+  const josefine::WindowArgs a = josefine::make_args(num_parts, ticks, params, peer_fresh,
+                                                     in_leaves, out_leaves, member, props,
+                                                     partials);
   switch (n) {
     case 1: return josefine::run_host<1>(a);
     case 2: return josefine::run_host<2>(a);

@@ -24,13 +24,15 @@ from josefine_tpu_torch.models.types import METRIC_FIELDS, Msgs, NodeState, Step
 from josefine_tpu_torch.ops import _build
 
 MAX_N = 16            # the config cap on group size; the kernel is instantiated for 1..16
-DEFAULT_TILE = 32     # partitions per block (160 threads, 28.8 KB shared at N = 5)
+DEFAULT_TILE = 24     # groups per block: 4 warps of 6 groups at N = 5
+MAX_WARPS = 8         # the kernel's __launch_bounds__: 256 threads per block
 _SMEM_MAX = 232_448   # shared memory one Hopper block may use
 _N_STATE = 18
-_BOOL_LEAVES = (11, 13)  # alive, votes
+_N_INBOX = 9
+_BOOL_LEAVES = (11, 13)  # alive, votes: bool, one byte, read and written as such
 
 launches = 0
-_kernel_info: dict[int, tuple[int, int, int]] = {}
+_kernel_info: dict[tuple[int, int], dict[str, int]] = {}
 
 
 def _totals(per_tick: cr.Metrics) -> dict[str, int]:
@@ -47,32 +49,45 @@ def run_ticks_fused_ref(params: StepParams, member: torch.Tensor, state: NodeSta
     return state, inbox, _totals(per_tick)
 
 
-def kernel_info(n: int) -> tuple[int, int, int]:
-    """(registers per thread, max threads per block, local bytes per thread)
-    of the compiled kernel for group size ``n``."""
-    if n not in _kernel_info:
-        out = (ctypes.c_int * 3)()
+def groups_per_warp(n: int) -> int:
+    """Whole groups in one warp of the kernel: ``32 // n``."""
+    return 32 // n
+
+
+def mailbox_bytes_per_warp(n: int) -> int:
+    """Shared memory of one warp's double-buffered mailbox."""
+    return 2 * _N_INBOX * groups_per_warp(n) * n * n * 4
+
+
+def warps_per_block(n: int, tile: int) -> int:
+    """The block's warp count: ``tile`` groups rounded up to whole warps,
+    cut to what one block may hold (threads and shared memory)."""
+    want = -(-max(1, int(tile)) // groups_per_warp(n))
+    return max(1, min(want, MAX_WARPS, _SMEM_MAX // mailbox_bytes_per_warp(n)))
+
+
+def kernel_info(n: int, tile: int = DEFAULT_TILE) -> dict[str, int]:
+    """The compiled kernel's resources for group size ``n`` at the block
+    shape ``tile`` gives: registers and local (spill) bytes per thread, max
+    threads and dynamic shared bytes per block, and resident blocks and
+    warps per SM from CUDA's occupancy calculator."""
+    w = warps_per_block(n, tile)
+    if (n, w) not in _kernel_info:
+        out = (ctypes.c_int * 5)()
         lib = _build.load_cuda()
-        _check(lib, lib.josefine_fused_kernel_info(n, out))
-        _kernel_info[n] = tuple(out)
-    return _kernel_info[n]
-
-
-def parts_per_block(n: int, tile: int) -> int:
-    """The block's partition count: ``tile``, cut to what one block can hold
-    (threads by the kernel's register use, and shared memory)."""
-    max_threads = kernel_info(n)[1]
-    return max(1, min(int(tile), max_threads // n, _SMEM_MAX // (9 * n * n * 4)))
+        _check(lib, lib.josefine_fused_kernel_info(n, w, out))
+        regs, max_threads, local, smem, blocks = out
+        _kernel_info[(n, w)] = {
+            "registers": regs, "max_threads": max_threads, "local_bytes": local,
+            "smem_bytes_per_block": smem, "warps_per_block": w,
+            "resident_blocks_per_sm": blocks, "resident_warps_per_sm": blocks * w}
+    return _kernel_info[(n, w)]
 
 
 def _check(lib, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(
             f"fused window kernel failed: {lib.josefine_cuda_error_string(rc).decode()}")
-
-
-def _i32(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.int32).contiguous()
 
 
 def run_ticks_fused(params: StepParams, member: torch.Tensor, state: NodeState,
@@ -85,8 +100,9 @@ def run_ticks_fused(params: StepParams, member: torch.Tensor, state: NodeState,
     flags hold for the whole window, inputs and outputs use the (P, ...)
     layout, and the metrics come back as a dict of window totals (Python
     ints, summed in int64): ``accepted_blocks, accepted_msgs, minted,
-    commit_delta, became_leader``. ``tile`` is the kernel's partitions per
-    block, a tuning knob with no effect on the result. Returns
+    commit_delta, became_leader``. ``tile`` is the kernel's groups per
+    block, rounded up to whole warps of ``32 // N`` groups: a tuning knob
+    with no effect on the result. Returns
     (state, inbox, totals).
     """
     if member.device.type == "cpu":
@@ -105,34 +121,43 @@ def _shape(member: torch.Tensor) -> tuple[int, int]:
     return P, N
 
 
-def _marshal(params, member, state, inbox, proposals, ticks, peer_fresh, B):
-    """The C interface's arguments: int32 contiguous leaves in, outputs and
-    per-block partials allocated, pointer and param arrays built."""
+def _marshal(params, member, state, inbox, proposals, ticks, peer_fresh, warps):
+    """The C interface's arguments: contiguous leaves in their own dtypes
+    (int32; alive, votes and member bool), outputs and per-warp partials
+    allocated, pointer and param arrays built."""
     P, N = _shape(member)
     dev = member.device
-    leaves = [_i32(t) for t in state.leaves() + inbox.leaves()]
-    member_i, props_i = _i32(member), _i32(proposals)
-    for i, t in enumerate(leaves + [member_i, props_i]):
-        want = (P, N, N) if 13 <= i < len(leaves) else (P, N)
+    leaves = state.leaves() + inbox.leaves() + [member, proposals]
+    bools = set(_BOOL_LEAVES) | {len(leaves) - 2}
+    leaves = [t.to(torch.bool if i in bools else torch.int32).contiguous()
+              for i, t in enumerate(leaves)]
+    for i, t in enumerate(leaves):
+        want = (P, N, N) if 13 <= i < _N_STATE + _N_INBOX else (P, N)
         if t.device != dev or tuple(t.shape) != want:
             raise ValueError(f"leaf {i}: {tuple(t.shape)} on {t.device}, "
                              f"expected {want} on {dev}")
-    pf = [0] * N if peer_fresh is None else [
-        int(v) for v in torch.as_tensor(peer_fresh).reshape(N).tolist()]
+    leaves, (member_c, props_c) = leaves[:-2], leaves[-2:]
+    # The params and flags stay on the device: the kernel reads them there,
+    # so a launch waits on no copy to the host.
+    prm = [t.to(dev, torch.int32).contiguous() for t in params.leaves()]
+    pf = None if peer_fresh is None else (
+        torch.as_tensor(peer_fresh).to(dev, torch.int32).reshape(N).contiguous())
     outs = [torch.empty_like(t) for t in leaves]
-    partials = torch.zeros(((P + B - 1) // B, len(METRIC_FIELDS)), dtype=torch.int32,
+    G = groups_per_warp(N)
+    partials = torch.empty(((P + G - 1) // G, len(METRIC_FIELDS)), dtype=torch.int32,
                            device=dev)
-    c_args = (N, P, int(ticks), B, (ctypes.c_int32 * (5 + N))(*params.ints(), *pf),
+    c_args = (N, P, int(ticks), warps,
+              (ctypes.c_void_p * len(prm))(*[t.data_ptr() for t in prm]),
+              None if pf is None else pf.data_ptr(),
               (ctypes.c_void_p * len(leaves))(*[t.data_ptr() for t in leaves]),
               (ctypes.c_void_p * len(outs))(*[t.data_ptr() for t in outs]),
-              member_i.data_ptr(), props_i.data_ptr(), partials.data_ptr())
+              member_c.data_ptr(), props_c.data_ptr(), partials.data_ptr())
     # The inputs travel with the arguments: they must outlive the launch.
-    return c_args, (leaves, member_i, props_i), outs, partials
+    return c_args, (leaves, member_c, props_c, prm, pf), outs, partials
 
 
 def _unmarshal(outs, partials):
-    outs = [o.bool() if i in _BOOL_LEAVES else o for i, o in enumerate(outs)]
-    tm = partials.to(torch.int64).sum(0).tolist()
+    tm = partials.sum(0, dtype=torch.int64).tolist()
     totals = {f: int(tm[i]) for i, f in enumerate(METRIC_FIELDS)}
     return (NodeState.from_leaves(outs[:_N_STATE]), Msgs.from_leaves(outs[_N_STATE:]),
             totals)
@@ -159,9 +184,8 @@ def _run_kernel(params, member, state, inbox, proposals, ticks, tile, peer_fresh
     if ticks < 0:
         raise ValueError("ticks must be >= 0")
     P, N = _shape(member)
-    B = parts_per_block(N, tile)
     c_args, _keep, outs, partials = _marshal(params, member, state, inbox, proposals,
-                                             ticks, peer_fresh, B)
+                                             ticks, peer_fresh, warps_per_block(N, tile))
     if P > 0:
         lib = _build.load_cuda()
         dev = member.device
@@ -181,13 +205,14 @@ def run_ticks_fused_emulated(params: StepParams, member: torch.Tensor, state: No
                              inbox: Msgs, proposals: torch.Tensor, ticks: int,
                              tile: int = DEFAULT_TILE, peer_fresh=None):
     """The kernel's own tick body (``csrc/fused_step.cuh``) built by g++ and
-    run on CPU tensors, with the block's shared-memory delivery emulated
-    (``csrc/fused_step_host.cpp``). Not a dispatch path: it exists so the
-    CPU tests can hold the hand-written body against the JAX package."""
+    run on CPU tensors, warp by warp, with each warp's shared-memory mailbox
+    emulated (``csrc/fused_step_host.cpp``). Not a dispatch path: it exists
+    so the CPU tests can hold the hand-written body against the JAX package."""
     if member.device.type != "cpu":
         raise ValueError("run_ticks_fused_emulated takes CPU tensors")
+    P, N = _shape(member)
     c_args, _keep, outs, partials = _marshal(params, member, state, inbox, proposals,
-                                             ticks, peer_fresh, max(1, int(tile)))
+                                             ticks, peer_fresh, warps_per_block(N, tile))
     if _build.load_host().josefine_fused_window_host(*c_args) != 0:
         raise RuntimeError("host emulation rejected its arguments")
     return _unmarshal(outs, partials)

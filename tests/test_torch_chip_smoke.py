@@ -38,12 +38,29 @@ def test_tick_loop_count_skips_nested_parts_only(monkeypatch, n):
     # Shortest path: the active guard's body is kept, the nested IMAD/I2F
     # part is skipped. ALU: ISETP, SEL. Issued: 10 of the 12 loop lines.
     assert got == {"ticks_per_body": 1.0, "issued": 10.0, "alu": 2.0, "imad": 0.0,
-                   "issued_all": 12.0, "skippable_parts": 1}
+                   "issued_all": 12.0, "alu_all": 2.0, "skippable_parts": 1}
 
 
 def test_tick_loop_count_needs_the_barriers(monkeypatch):
-    listing = _SASS.format(n=5).replace("BAR.SYNC", "NOP")
+    """Without block barriers and without the shared-memory delivery a loop
+    is not a tick loop."""
+    listing = _SASS.format(n=5).replace("BAR.SYNC", "NOP").replace("STS [R6], R3", "LDS R3, [R6]")
     monkeypatch.setattr(chip_smoke, "subprocess", types.SimpleNamespace(
         run=lambda *a, **k: types.SimpleNamespace(stdout=listing)))
     with pytest.raises(AssertionError, match="no tick loop"):
         chip_smoke.tick_loop_sass("lib.so", 5)
+
+
+def test_tick_loop_count_one_warp_barrier_per_tick(monkeypatch):
+    """A kernel that delivers within the warp: no barrier instruction left
+    (the __syncwarp of a reconverged warp is a NOP), one tick per body."""
+    listing = _SASS.format(n=5).replace(
+        "LDS R3, [R6] ;\n        /*00a0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+        "LDS R3, [R6] ;\n        /*00a0*/                   IADD3 R8, R8, 0x1, RZ ;").replace(
+        "BAR.SYNC.DEFER_BLOCKING 0x0", "NOP")
+    monkeypatch.setattr(chip_smoke, "subprocess", types.SimpleNamespace(
+        run=lambda *a, **k: types.SimpleNamespace(stdout=listing)))
+    got = chip_smoke.tick_loop_sass("lib.so", 5)
+    # As above, with the second barrier now an IADD3 on the ALU pipe.
+    assert got == {"ticks_per_body": 1.0, "issued": 10.0, "alu": 3.0, "imad": 0.0,
+                   "issued_all": 12.0, "alu_all": 3.0, "skippable_parts": 1}

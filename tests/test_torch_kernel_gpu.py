@@ -27,6 +27,13 @@ def cuda_device():
     (4096, 5, {}, None),
     (1003, 3, {"prevote": 0}, None),
     (4096, 3, {"hb_ticks": 32, "auto_proposals": 0}, (1, 0, 1)),
+    # The edges of the kernel's 32 // N groups per warp, and a last warp that
+    # holds 1 of its 6 groups.
+    (4096, 1, {}, None),
+    (4096, 4, {}, None),
+    (4096, 7, {"prevote": 0}, None),
+    (4096, 16, {}, None),
+    (100_003, 5, {}, None),
 ])
 def test_kernel_matches_plain_on_card(cuda_device, P, N, kw, pf):
     params = step_params(**{"timeout_min": 5, "timeout_max": 10, "hb_ticks": 1,

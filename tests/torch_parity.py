@@ -26,6 +26,12 @@ METRIC_NAMES = ("accepted_blocks", "accepted_msgs", "minted", "commit_delta",
 # One jitted JAX step shared by every suite (no donation: the tests reuse
 # their inputs).
 jax_step = jax.jit(jcr.cluster_step_impl)
+# The same step with XLA's fusion pass off. With it on, the CPU build's time
+# per call (not its compile) grows about tenfold per node slot above N = 5,
+# to tens of seconds at N = 8; with it off, a call at N = 16 takes about a
+# millisecond. Integer results do not depend on fusion.
+jax_step_unfused = jax.jit(jcr.cluster_step_impl,
+                           compiler_options={"xla_disable_hlo_passes": "fusion"})
 
 
 def np_leaves(tree) -> list[np.ndarray]:
