@@ -30,6 +30,24 @@ Phases (any failure raises, and the script exits non-zero without a result):
    the lesser of this kernel's count and the first kernel's. Last, the same
    window at other block shapes (``tile``): each must give the same result,
    with its residency, waves and time.
+5. the consensus engine on the card (``josefine_tpu_torch.raft.engine``,
+   dense packed IO; PyTorch ops only, no hand kernel). First, the engine's
+   upload of its (10, 4096, 3) inbox (``hostio.host_to``, through pinned
+   memory) must return while the stream still has ~100 ms of work queued;
+   the same upload straight from pageable memory is timed beside it, and
+   both once more on an idle card. 5a: a 3-engine in-process cluster on the
+   card and the same cluster on the CPU, P = 512,
+   40 single ticks then 30 adaptive window-4 ticks under a proposal drizzle,
+   engine 2 partitioned for 10 of them and caught up by AppendEntries capped
+   at 2 blocks: on every tick the encoded bytes of every outbound message,
+   every host mirror and every device state leaf must be equal, and no card
+   engine's ``tick_begin`` may wait for the device (CUDA's sync debug mode
+   set to error around it). 5b: ``josefine_tpu_torch.bench_engine.run`` at P = 4096
+   (40 warmup rounds, 20 timed): exactly one leader per group across the
+   three engines, and blocks committed in the timed rounds. It prints ms per
+   tick, committed blocks/s, commit latency, host ms per engine phase, and
+   the window step's own time (CUDA events) and kernel count
+   (``torch.profiler``).
 
 The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
@@ -149,6 +167,192 @@ def tick_loop_sass(so_path: str, n: int) -> dict:
     if best is None:
         raise AssertionError(f"no tick loop found in the SASS of fused_window_kernel<{n}>")
     return best
+
+
+def engine_parity(dev, P: int = 512) -> None:
+    """Phase 5a: the same 3-engine cluster on the card and on the CPU, fed
+    the same traffic. Raises on the first tick where an outbound message's
+    bytes, a host mirror or a device state leaf differ. AppendEntries carry
+    at most 2 blocks, so the partitioned engine catches up through capped
+    frames and send-pointer fixups. The card engines' ``tick_begin`` runs
+    under CUDA's sync debug mode set to error: a host wait inside it
+    raises."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from josefine_tpu_torch import interop
+    from josefine_tpu_torch.models.types import step_params
+    from josefine_tpu_torch.raft.engine import RaftEngine
+    from josefine_tpu_torch.utils.kv import MemKV
+
+    class Fsm:
+        def __init__(self):
+            self.applied = []
+
+        def transition(self, data):
+            self.applied.append(bytes(data))
+            return b""
+
+    def cluster(device):
+        fsms = [Fsm() for _ in range(3)]
+        engines = [RaftEngine(MemKV(), [1, 2, 3], i + 1, groups=P, fsms={0: fsms[i]},
+                              params=step_params(timeout_min=3, timeout_max=8, hb_ticks=16,
+                                                 device=device),
+                              base_seed=i, max_append_entries=2, device=device)
+                   for i in range(3)]
+        return engines, fsms
+
+    def begin(e, window):
+        if not e.state.term.is_cuda:
+            return e.tick_begin(window)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return e.tick_begin(window)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def mirrors(e):
+        return {k: v for k, v in vars(e).items()
+                if k.startswith("_h_") and isinstance(v, np.ndarray)}
+
+    async def run():
+        sides = [cluster(dev), cluster("cpu")]
+        cut = set()
+        rng = np.random.default_rng(11)
+        sent = fixups = 0
+        for t in range(70):
+            window = 1 if t < 40 else 4
+            cut = {2} if 45 <= t < 55 else set()
+            results = []
+            for engines, _ in sides:
+                hs = [begin(e, e.suggest_window(window)) for e in engines]
+                results.append([e.tick_finish(h) for e, h in zip(engines, hs)])
+            fixups += sum(bool(e._nxt_fixups) for e in sides[0][0])
+            for i, (a, b) in enumerate(zip(*results)):
+                wa, wb = [m.encode() for m in a.outbound], [m.encode() for m in b.outbound]
+                if wa != wb:
+                    raise AssertionError(f"engine parity: tick {t} engine {i}: outbound differs")
+                sent += len(wa)
+            for (engines, _), res in zip(sides, results):
+                for r in res:
+                    for m in r.outbound:
+                        if m.src not in cut and m.dst not in cut:
+                            engines[m.dst].receive(m)
+            for i, (ea, eb) in enumerate(zip(sides[0][0], sides[1][0])):
+                ma, mb = mirrors(ea), mirrors(eb)
+                for k in ma:
+                    if not np.array_equal(ma[k], mb[k]):
+                        raise AssertionError(f"engine parity: tick {t} engine {i}: {k} differs")
+                for j, (x, y) in enumerate(zip(interop.state_to_numpy(ea.state),
+                                               interop.state_to_numpy(eb.state))):
+                    if not np.array_equal(x, y):
+                        raise AssertionError(
+                            f"engine parity: tick {t} engine {i}: state leaf {j} differs")
+            if t >= 20 and t % 2 == 0:
+                for g in sorted(set(rng.integers(0, P, 16).tolist()) | {0}):
+                    for ea, eb in zip(sides[0][0], sides[1][0]):
+                        if ea.is_leader(g) and ea.me not in cut:
+                            ea.propose(g, b"t%d-g%d" % (t, g)).add_done_callback(_retrieve)
+                            eb.propose(g, b"t%d-g%d" % (t, g)).add_done_callback(_retrieve)
+                            break
+        applied = [f.applied for f in sides[0][1]]
+        if applied != [f.applied for f in sides[1][1]] or not applied[0]:
+            raise AssertionError("engine parity: group 0's FSMs differ or applied nothing")
+        if not fixups:
+            raise AssertionError("engine parity: no capped catch-up re-rooted a send pointer")
+        leaders = sum(int((e._h_role == 2).sum()) for e in sides[0][0])
+        print(f"engine parity ok: P={P}, 3 engines on the card == 3 on the CPU for 70 "
+              f"ticks (40 single, 30 adaptive window 4, engine 2 cut for 10): {sent} "
+              f"outbound messages byte-equal, every mirror and state leaf equal; "
+              f"{len(applied[0])} blocks applied on group 0, {leaders} leaders, "
+              f"send-pointer fixups on {fixups} engine-ticks, no host wait in any "
+              f"card tick_begin", flush=True)
+
+    asyncio.run(run())
+
+
+def upload_no_wait(dev, card: str, P: int = 4096) -> None:
+    """Phase 5: the host ms of three uploads of the engine's (10, P, 3)
+    inbox, made while the stream is still busy with a spin kernel queued just
+    before them; through ``host_to`` (pinned staging) they must return in
+    under a fifth of the spin. From pageable memory they are timed only.
+    Beside each, the host ms of one upload on an idle card (median of 21):
+    what the pinned staging costs a tick."""
+    import numpy as np
+    import torch
+
+    from josefine_tpu_torch.raft.hostio import host_to
+
+    a = np.arange(10 * P * 3, dtype=np.int32).reshape(10, P, 3)
+    ways = {"host_to": lambda: host_to(a, dev),
+            "pageable": lambda: torch.from_numpy(a).to(dev, non_blocking=True)}
+    spin = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    busy, spin_ms, idle = {}, {}, {}
+    for name, up in ways.items():
+        times = []
+        for _ in range(21):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            up()
+            times.append((time.perf_counter() - t0) * 1e3)
+        idle[name] = sorted(times)[10]
+        torch.cuda.synchronize(dev)
+        spin[0].record()
+        torch.cuda._sleep(200_000_000)  # ~100 ms at the card's clock
+        spin[1].record()
+        t0 = time.perf_counter()
+        got = [up() for _ in range(3)]
+        busy[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize(dev)
+        spin_ms[name] = spin[0].elapsed_time(spin[1])
+        if any(not np.array_equal(g.cpu().numpy(), a) for g in got):
+            raise AssertionError(f"upload through {name} changed the bytes")
+    print(f"inbox upload (10, {P}, 3) int32 x 3 behind a queued spin of "
+          f"{spin_ms['host_to']:.1f} ms: host_to returns in {busy['host_to']:.3f} ms of host "
+          f"time; from pageable memory {busy['pageable']:.3f} ms (behind "
+          f"{spin_ms['pageable']:.1f} ms). One upload on an idle card: host_to "
+          f"{idle['host_to']:.3f} ms, pageable {idle['pageable']:.3f} ms (median of 21) "
+          f"[{card}]", flush=True)
+    if busy["host_to"] > spin_ms["host_to"] / 5:
+        raise AssertionError(f"host_to waited for the queued work: {busy}, spin {spin_ms}")
+
+
+def _retrieve(fut):
+    fut.cancelled() or fut.exception()
+
+
+def engine_bench(card: str) -> dict:
+    """Phase 5b: the engine path at full size on the card, with its gates."""
+    from josefine_tpu_torch import bench_engine
+    from josefine_tpu_torch.ops import fused_step
+
+    launches0 = fused_step.launches
+    row = bench_engine.run(P=4096, warmup=40, ticks=20)
+    print(json.dumps(row), flush=True)
+    if row["leaders_per_group"] != {"min": 1, "max": 1}:
+        raise AssertionError(f"engine path: leaders per group {row['leaders_per_group']}")
+    if row["committed_blocks"] <= 0:
+        raise AssertionError("engine path: no block committed in the timed rounds")
+    lat = row["commit_latency_ticks"]
+    phases = ", ".join(f"{k} {v['ms_per_round']:.3f}"
+                       for k, v in row["profile_phases"].items())
+    print(f"engine path: P={row['P']} x 3 engines, {row['ms_per_tick']:.3f} ms/tick, "
+          f"{row['committed_blocks_per_sec']:.6g} committed blocks/s, commit latency "
+          f"p50 {lat['p50']} p99 {lat['p99']} ticks (n {lat['n']}); host ms per round "
+          f"(3 engines): {phases}; hand-kernel launches "
+          f"{fused_step.launches - launches0} [{card}]", flush=True)
+    busy = row["device_busy"]
+    print(f"engine path, card over {busy['rounds']} rounds: {busy['busy_ms']:.3f} ms busy of "
+          f"{busy['wall_ms']:.3f} ms, idle share {busy['idle_share']:.3f} [{card}]", flush=True)
+    for w, s in row["window_step"].items():
+        print(f"engine window step ({w} tick{'s' if w != '1' else ''}, one engine, "
+              f"P={row['P']}): {s['events_ms']:.3f} ms by CUDA events, {s['kernels']} "
+              f"device kernels and copies, {s['launch_calls']} cudaLaunchKernel calls, "
+              f"{s['busy_ms']:.3f} ms of kernel time; most launched: {s['top']} [{card}]",
+              flush=True)
+    return row
 
 
 def main() -> int:
@@ -361,6 +565,11 @@ def main() -> int:
               f"{shape['resident_warps_per_sm']} resident warps/SM, "
               f"{blocks_t / (SMS * shape['resident_blocks_per_sm']):.3f} waves, kernel alone "
               f"{sorted(r[3] for r in got)[1]:.3f} ms (median of 3) [{card}]", flush=True)
+
+    # ---- 5. the consensus engine on the card ----
+    upload_no_wait(dev, card)
+    engine_parity(dev)
+    engine_bench(card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_window",

@@ -89,29 +89,37 @@ def _peer_fresh(peer_fresh, N: int, device) -> torch.Tensor:
 
 
 def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
-              inbox: Msgs, proposals: torch.Tensor, peer_fresh=None):
-    """One tick of every node of P groups: inbox fold -> timers -> election
+              inbox: Msgs, proposals: torch.Tensor, peer_fresh=None, me=None):
+    """One tick of M node slots of P groups: inbox fold -> timers -> election
     tally -> proposal minting -> quorum commit -> outbox.
 
-    ``member`` bool (P, N); state leaves (P, N) / (P, N, N); ``inbox``
-    leaves (P, N_dst, N_src); ``proposals`` int32 (P, N); ``peer_fresh`` an
-    optional [N] 0/1 vector of node-slot transport liveness (the aggregate
-    keepalive), broadcast over P. Returns (state', outbox, metrics) with the
-    outbox indexed ``[p, src, dst]`` (the sender's row).
+    ``member`` bool (P, N). ``me`` is an optional int64 (M,) tensor of the
+    node slots being stepped; None steps every slot (M = N, ``me`` =
+    ``arange(N)``), which is the whole-cluster step. State leaves are
+    (P, M) / (P, M, N); ``inbox`` leaves (P, M, N_src); ``proposals`` int32
+    (P, M); ``peer_fresh`` an optional [N] 0/1 vector of node-slot transport
+    liveness (the aggregate keepalive), broadcast over P. Returns (state',
+    outbox, metrics) with the outbox indexed ``[p, me, dst]`` (the sender's
+    row). The engine steps one node of every group: M = 1.
     """
     P, N = member.shape
     dev = member.device
     st_in = st = state
+    M = st.role.shape[1]
     commit_s0 = st.commit.s
-    me = torch.arange(N, dtype=_I32, device=dev)       # (N,) over the node axis
-    eye = me[:, None] == me[None, :]                    # (N, N) [me, peer]
+    slots = torch.arange(N, dtype=_I32, device=dev)     # (N,) over the node axis
+    if me is None:
+        me_i, my_member = slots, member
+    else:
+        me_i, my_member = me.to(_I32), member[:, me]    # (M,) slot ids, (P, M)
+    eye = me_i[:, None] == slots[None, :]               # (M, N) [me, peer]
     alive = st.alive
     member3 = member[:, None, :]                        # (P, 1, N_peer)
 
     # ---- 1. inbox fold (sequential over srcs) ----
     rep_kind, rep_term, rep_xt, rep_xs, rep_ok = [], [], [], [], []
-    acc_blocks = torch.zeros((P, N), dtype=_I32, device=dev)
-    acc_msgs = torch.zeros((P, N), dtype=_I32, device=dev)
+    acc_blocks = torch.zeros((P, M), dtype=_I32, device=dev)
+    acc_msgs = torch.zeros((P, M), dtype=_I32, device=dev)
     for src in range(N):
         kind = inbox.kind[:, :, src]
         mterm = inbox.term[:, :, src]
@@ -207,7 +215,7 @@ def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
         acc_blocks = acc_blocks + span
         acc_msgs = acc_msgs + accept.to(_I32)
 
-    # Replies as (P, N_me, N_dst) bricks: the reply to src rides lane dst=src.
+    # Replies as (P, M, N_dst) bricks: the reply to src rides lane dst=src.
     r_kind = _i32(torch.stack(rep_kind, -1))
     r_term = torch.stack(rep_term, -1)
     r_x = ids.Bid(torch.stack(rep_xt, -1), torch.stack(rep_xs, -1))
@@ -225,7 +233,7 @@ def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
         ka = ((st.leader >= 0) & (pf_l != 0)
               & (st.hb_elapsed < params.hb_ticks * 8))
         elapsed = torch.where(ka, 0, elapsed)
-    timed_out = alive & member & ~is_leader & (elapsed >= st.timeout)
+    timed_out = alive & my_member & ~is_leader & (elapsed >= st.timeout)
     # The redraw folds in the previous timeout (decorrelates stalled pre-vote
     # rounds).
     mix = _redraw_mix(st.term, st.timeout)
@@ -234,7 +242,7 @@ def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
         elapsed=torch.where(timed_out, 0, elapsed),
         role=torch.where(timed_out, _i32(torch.where(pv, PRECANDIDATE, CANDIDATE)),
                          st.role),
-        voted_for=torch.where(timed_out & ~pv, me, st.voted_for),
+        voted_for=torch.where(timed_out & ~pv, me_i, st.voted_for),
         leader=torch.where(timed_out, -1, st.leader),
         votes=torch.where(timed_out[..., None], eye, st.votes),
         timeout=torch.where(timed_out, _draw_timeout(st.seed, mix, params), st.timeout),
@@ -249,7 +257,7 @@ def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
     st = st.replace(
         role=torch.where(pre_elected, CANDIDATE, st.role),
         term=torch.where(pre_elected, st.term + 1, st.term),
-        voted_for=torch.where(pre_elected, me, st.voted_for),
+        voted_for=torch.where(pre_elected, me_i, st.voted_for),
         votes=torch.where(pre_elected[..., None], eye, st.votes),
         elapsed=torch.where(pre_elected, 0, st.elapsed),
         timeout=torch.where(pre_elected, _draw_timeout(st.seed, st.term + 1, params),
@@ -261,16 +269,17 @@ def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
     head_after = ids.where(elected, ids.Bid(st.term, st.head.s + 1), st.head)
     head3 = ids.Bid(head_after.t[..., None], head_after.s[..., None])
     commit3 = ids.Bid(st.commit.t[..., None], st.commit.s[..., None])
-    zero3 = ids.full((P, N, N), device=dev)
+    PMN = (P, M, N)
+    zero3 = ids.full(PMN, device=dev)
     # Fresh progress rows: match = genesis for peers, nxt = our commit; the
     # self entries track our own head.
-    fresh_match = ids.where(eye, ids.broadcast_to(head3, (P, N, N)), zero3)
-    fresh_nxt = ids.where(eye, ids.broadcast_to(head3, (P, N, N)),
-                          ids.broadcast_to(commit3, (P, N, N)))
+    fresh_match = ids.where(eye, ids.broadcast_to(head3, PMN), zero3)
+    fresh_nxt = ids.where(eye, ids.broadcast_to(head3, PMN),
+                          ids.broadcast_to(commit3, PMN))
     el3 = elected[..., None]
     st = st.replace(
         role=torch.where(elected, LEADER, st.role),
-        leader=torch.where(elected, me, st.leader),
+        leader=torch.where(elected, me_i, st.leader),
         head=head_after,
         match=ids.where(el3, fresh_match, st.match),
         nxt=ids.where(el3, fresh_nxt, st.nxt),
@@ -282,20 +291,19 @@ def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
     minted = torch.where(is_leader & alive, proposals + params.auto_proposals, 0)
     st = st.replace(head=ids.Bid(t=torch.where(minted > 0, st.term, st.head.t),
                                  s=st.head.s + minted))
-    head3 = ids.broadcast_to(ids.Bid(st.head.t[..., None], st.head.s[..., None]),
-                             (P, N, N))
+    head3 = ids.broadcast_to(ids.Bid(st.head.t[..., None], st.head.s[..., None]), PMN)
     sv_lead = eye & is_leader[..., None]
     st = st.replace(match=ids.where(sv_lead, head3, st.match),
                     nxt=ids.where(sv_lead, head3, st.nxt))
 
     # ---- 5. quorum commit: k-th largest match (k = quorum) ----
-    mt, ms = st.match.t, st.match.s                           # (P, N, N_i)
+    mt, ms = st.match.t, st.match.s                           # (P, M, N_i)
     ge_mat = ((mt[..., None, :] > mt[..., :, None])
               | ((mt[..., None, :] == mt[..., :, None])
                  & (ms[..., None, :] >= ms[..., :, None])))  # [p, me, i, j]: match[j] >= match[i]
-    support = (ge_mat & member[:, None, None, :]).sum(-1)    # (P, N, N_i)
+    support = (ge_mat & member[:, None, None, :]).sum(-1)    # (P, M, N_i)
     eligible = member3 & (support >= quorum[..., None])
-    best = ids.full((P, N), -1, -1, device=dev)
+    best = ids.full((P, M), -1, -1, device=dev)
     for i in range(N):
         cand = ids.index(st.match, i)
         take = eligible[..., i] & ids.gt(cand, best)
@@ -304,9 +312,9 @@ def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
     st = st.replace(commit=ids.where(advance, best, st.commit))
 
     # ---- 6. outbox ----
-    is_peer = member3 & ~eye                                  # (P, N_me, N_dst)
+    is_peer = member3 & ~eye                                  # (P, M, N_dst)
     hb_due = st.hb_elapsed >= params.hb_ticks
-    send_ae = ((is_leader & alive & member)[..., None] & is_peer
+    send_ae = ((is_leader & alive & my_member)[..., None] & is_peer
                & (hb_due[..., None] | ids.lt(st.nxt, head3)))
     st = st.replace(hb_elapsed=torch.where(
         is_leader, torch.where(hb_due, 1, st.hb_elapsed + 1), st.hb_elapsed + 1))
@@ -315,9 +323,8 @@ def node_step(params: StepParams, member: torch.Tensor, state: NodeState,
     bc_pvr = ((just_precand & alive & ~is_leader)[..., None] & is_peer & ~bc_vr
               & (r_kind == MSG_NONE))
 
-    commit3 = ids.broadcast_to(ids.Bid(st.commit.t[..., None], st.commit.s[..., None]),
-                               (P, N, N))
-    term3 = st.term[..., None].expand(P, N, N)
+    commit3 = ids.broadcast_to(ids.Bid(st.commit.t[..., None], st.commit.s[..., None]), PMN)
+    term3 = st.term[..., None].expand(PMN)
     kind = torch.where(send_ae, MSG_APPEND,
                        torch.where(bc_vr, MSG_VOTE_REQ,
                                    torch.where(bc_pvr, MSG_PREVOTE_REQ, r_kind)))

@@ -1,0 +1,1391 @@
+"""RaftEngine: the per-node bridge between host runtime and the device step.
+
+One engine instance is **one node of every consensus group** (the node-axis
+row of the (partitions x nodes) tensor that lives on this host). Per tick it:
+
+1. encodes received wire messages into the packed (10, P, N_src) inbox
+   (one slot per (group, src); extras carry over to the next tick),
+2. steps its node's row of all P groups through the packed window step
+   (``raft/packed_step.py``) on the engine's device,
+3. mirrors device decisions into durable host state: minted blocks are
+   appended to the chain with their payloads, accepted spans extend it,
+   commit advancement applies blocks to the FSM driver and resolves
+   waiting client futures,
+4. decodes the outbox into wire messages, attaching payload spans to
+   AppendEntries from the chain.
+
+The role machine itself runs on the device; the host moves payloads and
+durability. This is the port of the JAX package's ``raft/engine.py`` with
+dense packed IO. Backends: ``"torch"`` (the batched torch step, on
+``device``) and ``"python"`` (the scalar oracle). Options whose machinery
+is not ported yet raise ``NotImplementedError`` naming the ROADMAP item
+that brings them; nothing silently runs another path.
+
+Invariant: an AppendEntries only reaches the device if its payload span was
+validated against its (x, y] claim (rpc.span_is_valid), so "device accepted"
+always implies "host can extend the chain".
+
+Device discipline: ``tick_begin`` never waits for the device. It uploads
+the packed inbox without a host sync, enqueues the window step, and starts
+one asynchronous copy of the flat output into pinned host memory;
+``tick_fetch`` waits for that copy alone. State leaves are never written in
+place (an in-flight pipelined finish may still read them): every row write
+builds a new leaf.
+
+The engine is split across five modules, all state living on this class:
+
+* ``raft/packed_step.py``: the packed dense window step (two backends);
+* ``raft/snap_transfer.py``: snapshot capture, chunked transfer, install
+  (:class:`SnapshotTransfer` mixin);
+* ``raft/group_admin.py``: membership mask, group lifecycle, vote parole,
+  conf-change application (:class:`GroupAdmin` mixin);
+* ``raft/hostio.py``: inbox packing / outbox decoding (:class:`HostIO`
+  mixin);
+* this module: construction/recovery, wire intake, the tick dispatch
+  (begin/finish), and status queries.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from josefine_tpu_torch.models import chained_raft as cr
+from josefine_tpu_torch.models.types import (
+    CANDIDATE,
+    FOLLOWER,
+    LEADER,
+    PRECANDIDATE,
+    StepParams,
+    resolve_device,
+    step_params,
+)
+from josefine_tpu_torch.ops import ids
+from josefine_tpu_torch.raft import rpc
+from josefine_tpu_torch.raft.chain import GENESIS, Chain, id_term, id_seq
+from josefine_tpu_torch.raft.fsm import Driver, Fsm, ReplicaDiverged, supports_snapshot
+from josefine_tpu_torch.raft.group_admin import (
+    _PAROLE_DROP_ARR,
+    _PAROLE_DROP_KINDS,
+    GroupAdmin,
+)
+from josefine_tpu_torch.raft.hostio import HostIO, host_to
+from josefine_tpu_torch.raft.membership import ConfChange, MemberTable, is_conf
+from josefine_tpu_torch.raft.migration import is_migration_fence
+from josefine_tpu_torch.raft.packed_step import (
+    _node_view,
+    _py_packed_window,
+    _window_step_fn,
+)
+from josefine_tpu_torch.raft.result import NotLeader, TickResult
+from josefine_tpu_torch.raft.snap_transfer import SnapshotTransfer, _SnapStream
+from josefine_tpu_torch.utils.flight import FlightRecorder
+from josefine_tpu_torch.utils.health import HealthMonitor
+from josefine_tpu_torch.utils.kv import KV
+from josefine_tpu_torch.utils.metrics import REGISTRY
+from josefine_tpu_torch.utils.spans import current_span
+from josefine_tpu_torch.utils.profiling import NULL_PROFILER, PhaseProfiler
+from josefine_tpu_torch.utils.tracing import get_logger
+
+__all__ = ["RaftEngine", "NotLeader", "TickResult"]
+
+log = get_logger("raft.engine")
+
+_m_ticks = REGISTRY.counter("raft_ticks_total", "Engine ticks executed")
+_m_elections = REGISTRY.counter("raft_elections_won_total", "Elections won across groups")
+_m_committed = REGISTRY.counter("raft_blocks_committed_total", "Blocks committed and applied")
+_m_out = REGISTRY.counter("raft_msgs_out_total", "Consensus wire messages sent")
+_m_in = REGISTRY.counter("raft_msgs_in_total", "Consensus wire messages accepted into the inbox")
+_m_led = REGISTRY.gauge("raft_groups_led", "Groups this node currently leads")
+_m_backlog_dropped = REGISTRY.counter(
+    "raft_batch_backlog_dropped_total",
+    "Consensus batch entries dropped by the per-src intake backlog cap")
+# Proposal→commit latency in DEVICE ticks (the protocol's clock), observed
+# leader-side when commit advancement covers a block this node minted.
+# Power-of-two buckets; p50/p99 via Histogram.quantile.
+_m_commit_lat = REGISTRY.histogram(
+    "raft_commit_latency_ticks",
+    "Proposal submit to commit-applied latency in device ticks (leader-side)")
+# Per-tenant attribution of the same latency: rows tagged via
+# set_group_tag additionally observe into this tenant-labelled histogram
+# (capped label set with an overflow series).
+_m_commit_lat_tenant = REGISTRY.histogram(
+    "raft_commit_latency_ticks_by_tenant",
+    "Proposal submit to commit-applied latency in device ticks, attributed "
+    "to the tenant tag of the group row (leader-side; capped label set "
+    "with an _other overflow series)", max_series=256)
+# Pipeline / backlog telemetry, refreshed at scrape time by the engine's
+# collect hook (_publish_telemetry).
+_m_phase_ms = REGISTRY.gauge(
+    "raft_tick_phase_ms_total",
+    "Cumulative wall ms per tick phase (PhaseProfiler; empty unless "
+    "enable_profiling)")
+_m_pipe_depth = REGISTRY.gauge(
+    "raft_pipeline_depth",
+    "In-flight pipelined dispatches (0 = quiesced, 1 = double-buffered)")
+_m_inbox_backlog = REGISTRY.gauge(
+    "raft_inbox_backlog",
+    "Wire messages + batch entries + deferred host messages queued for the "
+    "next tick")
+_m_flight_seq = REGISTRY.gauge(
+    "raft_flight_events_total",
+    "Consensus flight-recorder events emitted (monotone past ring eviction)")
+
+# Kinds allowed into the device inbox — single source of truth for both the
+# single-message whitelist (receive) and the batch intake (_receive_batch).
+_CONSENSUS_KIND_SET = frozenset((
+    rpc.MSG_VOTE_REQ, rpc.MSG_VOTE_RESP, rpc.MSG_APPEND, rpc.MSG_APPEND_RESP,
+    rpc.MSG_PREVOTE_REQ, rpc.MSG_PREVOTE_RESP,
+))
+_CONSENSUS_KINDS = np.asarray(sorted(_CONSENSUS_KIND_SET), np.int32)
+
+# Above this many groups the JAX engine picks sparse packed IO by default.
+_DENSE_MAX_GROUPS = 4096
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch engine yet (ROADMAP Queue 1, {item})")
+
+
+class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
+    """Device-backed consensus engine for one node across P groups."""
+
+    def __init__(
+        self,
+        kv: KV,
+        node_ids: list[int],
+        self_id: int,
+        groups: int = 1,
+        fsms: dict[int, Fsm] | None = None,
+        params: StepParams | None = None,
+        base_seed: int = 0,
+        snapshot_threshold: int | None = None,
+        snapshot_interval_ticks: int | None = None,
+        max_nodes: int | None = None,
+        backend: str = "torch",
+        max_append_entries: int | None = 64,
+        sparse_io: bool | None = None,
+        active_set: bool = False,
+        mesh=None,
+        flight_ring: int = 4096,
+        flight_wire: bool = False,
+        request_spans: bool = False,
+        leases: bool = False,
+        health: bool = False,
+        device="cuda",
+    ):
+        if backend not in ("torch", "python"):
+            raise ValueError(f"unknown engine backend {backend!r}")
+        if sparse_io is None:
+            sparse_io = groups > _DENSE_MAX_GROUPS
+        if sparse_io:
+            raise _not_ported(
+                f"sparse packed IO (selected by default above {_DENSE_MAX_GROUPS} "
+                "groups)", "item 5, sparse")
+        if active_set:
+            raise _not_ported("the active-set scheduler", "item 5, active-set")
+        if mesh is not None:
+            raise _not_ported("sharding the engine over a device mesh", "item 10")
+        if leases:
+            raise _not_ported("the leader-lease plane", "item 6, lease plane")
+        self._device = resolve_device(device)
+        self.kv = kv
+        if self_id not in node_ids:
+            raise ValueError(f"self id {self_id} not in node_ids {node_ids}")
+        self.self_id = self_id
+        self.P = groups
+        # Membership: node-axis columns are pre-allocated slots; the cluster
+        # can grow into free slots and shrink by masking columns. The
+        # durable member table (updated by committed conf blocks) overrides
+        # the configured bootstrap list on restart.
+        max_slots = max(len(node_ids), max_nodes or 0)
+        self.members = (MemberTable.load(kv, max_slots)
+                        or MemberTable.bootstrap(list(node_ids), max_slots))
+        self.N = self.members.max_slots
+        slot = self.members.slot_of(self_id)
+        if slot is None:
+            raise ValueError(
+                f"self id {self_id} has no slot in the member table "
+                f"({sorted(self.members.by_id)}) — a joining node must be "
+                "configured with the full current member list")
+        self.me = slot
+        self.node_ids = [self.members.id_of(s) for s in range(self.N)]
+        # Per-group membership claims: group 0 always spans all active
+        # members; a data group claimed by a topic partition is restricted
+        # to its replica set's slots; an explicitly idled group (empty
+        # claim) elects nobody. Groups without an entry default to full
+        # membership.
+        self._group_claims: dict[int, frozenset[int]] = {}
+        self._backend = backend
+        params = params or step_params(device=self._device)
+        self.params = StepParams.from_leaves(
+            [t.to(self._device) for t in params.leaves()])
+        # The params as host ints, read once: reading a device scalar per
+        # tick would make every tick wait for the device.
+        (_tmin, _tmax, self._hb_ticks, auto_proposals,
+         _prevote) = self.params.ints()
+        if auto_proposals != 0:
+            # The auto-proposal lane is a bench-only device feature; the
+            # engine mints exactly the payloads it holds, so the two must
+            # agree block-for-block.
+            raise ValueError("RaftEngine requires params.auto_proposals == 0")
+
+        self.chains = [Chain(kv, prefix=b"g%d:" % g) for g in range(groups)]
+        self.drivers = {g: Driver(fsm) for g, fsm in (fsms or {}).items()}
+
+        # Snapshotting / log compaction: take an FSM snapshot + truncate the
+        # chain when a group has >= snapshot_threshold committed blocks
+        # above its floor, or every snapshot_interval_ticks ticks if it made
+        # any progress.
+        self.snapshot_threshold = snapshot_threshold
+        self.snapshot_interval_ticks = snapshot_interval_ticks
+        # Replication flow control: at most this many blocks per AE frame.
+        # None = unbounded (simulated modes with no wire frames).
+        self.max_append_entries = max_append_entries
+        self._ticks = 0
+        self._last_snap_tick: dict[int, int] = {}
+        self._snap_sent_tick: dict[tuple[int, int], int] = {}
+        self._snap_cache: dict[int, tuple[int, bytes]] = {}
+        # Chunked snapshot transfer state (see raft/snap_transfer.py).
+        # Sender: (g, dst) -> (snap_id, next byte offset; -1 = position
+        # probe outstanding), advanced by acks, plus per-transfer lazy
+        # streams and last-ack ticks. Receiver: g -> a _SnapSink or a
+        # (snap_id, buffer) staging. Acks are queued here and drained into
+        # the next tick's outbound.
+        self.snap_chunk_bytes = 4 << 20
+        self.snap_window_bytes = 8 << 20
+        self.snap_transfer_stale_ticks = 200
+        # Incremental log-sync resume (receiver-side): a probe reply carries
+        # the local log end and the sender ships only the missing suffix.
+        self.snap_incremental = True
+        # Migration freeze (volatile): groups whose row is the SOURCE of an
+        # in-progress live migration refuse NEW proposals with a retryable
+        # NotLeader (see raft/migration.py).
+        self._frozen_groups: set[int] = set()
+        # Vote parole (durable): group -> pre-reset head watermark. A group
+        # that reset its chain abstains from elections until its head has
+        # been re-replicated past everything it may have acked (see
+        # _reset_group).
+        self._parole: dict[int, int] = {}
+        for k, v in kv.scan_prefix(b"parole:"):
+            try:
+                g = int(k[len(b"parole:"):])
+            except ValueError:
+                continue
+            if 0 <= g < self.P and len(v) == 8:
+                self._parole[g] = int.from_bytes(v, "big")
+            else:
+                # Stale key from a larger-P config (or corrupt): drop it
+                # rather than index out of range on every tick's lift scan.
+                log.warning("dropping out-of-range parole key %r", k)
+                kv.delete(k)
+        self._snap_send_off: dict[tuple[int, int], tuple[int, int]] = {}
+        self._snap_payload: dict[tuple[int, int], _SnapStream] = {}
+        self._snap_ack_tick: dict[tuple[int, int], int] = {}
+        self._snap_staging: dict[int, object] = {}
+        self._snap_stage_tick: dict[int, int] = {}
+        self._snap_acks: list[rpc.WireMsg] = []
+
+        # Restart recovery for snapshot-capable FSMs: restore the latest
+        # snapshot, then replay the committed suffix (snap, commit]. FSMs
+        # without restore() are assumed durable in their own right and get
+        # no replay.
+        for g, drv in self.drivers.items():
+            if not supports_snapshot(drv.fsm):
+                continue
+            ch = self.chains[g]
+            if ch.committed == GENESIS:
+                continue
+            snap_id, snap_data = self._load_snapshot(g)
+            start = GENESIS
+            if snap_id is not None:
+                drv.fsm.restore(snap_data)
+                start = snap_id
+            else:
+                # No snapshot yet: reset to the empty baseline before the
+                # full replay so replay is the sole source of state.
+                drv.fsm.restore(b"")
+            if ch.committed > start:
+                # Conf blocks route to the member table, never the app FSM
+                # (same split as the live commit path at _apply_conf_block).
+                app_blocks = []
+                for b in ch.range(start, ch.committed):
+                    if is_conf(b.data):
+                        self._safe_conf_apply(b)
+                    else:
+                        app_blocks.append(b)
+                drv.apply(app_blocks)
+
+        # The replay above may have re-applied conf blocks — refresh the
+        # slot-to-id map derived from the table before it is used.
+        self.node_ids = [self.members.id_of(s) for s in range(self.N)]
+        mask = self._member_mask()
+        full, member = cr.init_state(groups, self.N, member=mask,
+                                     base_seed=base_seed, params=self.params,
+                                     device=self._device)
+        self.member = member  # (P, N)
+        st = _node_view(full, self.me)
+        # Durable recovery: chain head/commit + persisted term/voted_for.
+        heads_t, heads_s, commits_t, commits_s, terms, voted = [], [], [], [], [], []
+        for g, ch in enumerate(self.chains):
+            heads_t.append(id_term(ch.head)); heads_s.append(id_seq(ch.head))
+            commits_t.append(id_term(ch.committed)); commits_s.append(id_seq(ch.committed))
+            t, v = self._load_vol(g)
+            terms.append(max(t, id_term(ch.head)))
+            voted.append(v)
+        up = lambda xs: host_to(np.asarray(xs, np.int32), self._device)
+        self.state = st.replace(
+            head=ids.Bid(up(heads_t), up(heads_s)),
+            commit=ids.Bid(up(commits_t), up(commits_s)),
+            term=up(terms),
+            voted_for=up(voted),
+        )
+        # Host mirrors (numpy) for fast per-tick diffing. head/commit mirror
+        # the packed chain ids so tick_finish can select active groups with
+        # one vectorized compare instead of an O(P) Python scan.
+        self._h_term = np.asarray(terms, np.int64)
+        self._h_voted = np.asarray(voted, np.int64)
+        self._h_role = np.zeros(groups, np.int64)
+        self._h_leader = np.full(groups, -1, np.int64)
+        self._h_head = np.fromiter(
+            (ch.head for ch in self.chains), np.int64, count=groups)
+        self._h_commit = np.fromiter(
+            (ch.committed for ch in self.chains), np.int64, count=groups)
+        # Reused per-tick input buffer: nine packed message rows + the
+        # proposal-count row (zeroed in place each tick, uploaded once).
+        self._in10 = np.zeros((10, groups, self.N), np.int32)
+        self._me_dev = host_to(np.asarray([self.me], np.int64), self._device)
+        # Hot-path counters with the label key pre-resolved.
+        self._c_in = _m_in.bind(node=self.self_id)
+        # Per-(group, src) tick of the last delivered consensus message —
+        # the liveness half of the derived ISR (in_sync_map).
+        self._h_last_seen = np.zeros((groups, self.N), np.int64)
+        # Per-row incarnation (consensus-group recycling): stamped onto
+        # every outbound data-group frame and checked at intake — a frame
+        # from a recycled row's previous life must never be applied to its
+        # successor.
+        self._h_ginc = np.zeros(groups, np.int64)
+        # Host timer mirrors: elapsed/hb_elapsed are kept in lockstep with
+        # the out-of-tick device writes (parole hold, group reset); timeout
+        # and alive are startup snapshots, read in ONE transfer.
+        self._h_elapsed = np.zeros(groups, np.int32)
+        self._h_hb = np.zeros(groups, np.int32)
+        timers = torch.stack([self.state.timeout,
+                              self.state.alive.to(torch.int32)]).cpu().numpy()
+        self._h_timeout = timers[0].astype(np.int32)
+        self._h_alive = timers[1].astype(bool)
+        # Per-src transport liveness: tick of the last frame (of any kind,
+        # including MSG_PING) received from each slot. Drives peer_fresh —
+        # the aggregate keepalive that lets leaders stagger per-group
+        # heartbeats without election timers firing (see node_step).
+        self._h_src_seen = np.full(self.N, -(10 ** 9), np.int64)
+        self.keepalive_window_ticks = 2
+        # Largest dispatch window ever requested (monotone): scales the
+        # keepalive freshness horizon so peers pinging once per K-tick
+        # window stay "fresh" even while WE step single ticks.
+        self._window_hint = 1
+
+        self._pending_msgs: list[rpc.WireMsg] = []
+        self._pending_batches: list[rpc.MsgBatch] = []
+        # (payload, future, submit device tick, request span) — the tick
+        # stamp feeds the proposal→commit latency histogram at mint time;
+        # the span (None unless request_spans minted a trace context for
+        # this request, utils/spans.py) rides the queue.
+        self._proposals: dict[
+            int, list[tuple[bytes, asyncio.Future | None, int, object]]] = {}
+        # Groups with a non-empty proposal queue, kept in lockstep with
+        # _proposals so the per-tick builders touch only pending groups.
+        self._prop_groups: set[int] = set()
+        # Conf-change bookkeeping: block-id-keyed commit waiters, the
+        # single-in-flight guard (leader side), and conf notifications
+        # produced outside tick() (snapshot install) for the next TickResult.
+        self._conf_waiters: dict[int, asyncio.Future] = {}
+        # Seed the single-change-in-flight guard from the uncommitted suffix
+        # of group 0.
+        self._conf_pending: int | None = self._scan_conf_pending()
+        self._conf_notify: list[ConfChange] = []
+        # App-layer conf-apply hook (node-wired after construction, so
+        # restart replay cannot fire it).
+        self.on_conf_applied = None
+        # Rows recycled DURING the current tick (a claim committing on
+        # group 0 fires the recycle hook mid-loop): the rest of this tick
+        # must not touch them — their scalar mirror/outbox snapshots predate
+        # the reset.
+        self._recycled_this_tick: set[int] = set()
+        # Send-pointer re-roots recorded by the outbox decoder (AE frames
+        # capped at max_append_entries), applied as ONE scatter by the NEXT
+        # tick_begin (_drain_nxt_fixups) — never at decode time, which
+        # would touch device state while tick_pipelined has the next
+        # dispatch in flight. _reset_group purges a reset row's entries.
+        self._nxt_fixups: list[tuple[int, int, int]] = []
+        # Per-tick phase profiler (inbox / stage / dispatch / fetch /
+        # decode / apply). NULL_PROFILER's phase() is a shared no-op
+        # context manager; enable_profiling() swaps in a recording one.
+        self.profiler = NULL_PROFILER
+        # Request-scoped spans (default off): when on, propose() reads the
+        # ambient trace context (utils/spans.py contextvar) and the
+        # mint/commit/apply sites stamp the span's phase rungs.
+        self._request_spans = bool(request_spans)
+        # Pipelined-tick state: the in-flight tick handle (tick_pipelined's
+        # double buffer), the dispatch-in-flight flag (True from tick_begin
+        # until the tick's device fetch materializes), and host-side
+        # messages (snapshot chunks/acks) deferred while a tick is in
+        # flight — staging them mid-flight would mutate chain/device rows
+        # the outstanding dispatch already snapshotted.
+        self._pipeline_h: dict | None = None
+        self._tick_inflight = False
+        self._deferred_host: list[rpc.WireMsg] = []
+        # Consensus flight recorder (always on — emission sites are
+        # transitions tick_finish already detects by diffing the host
+        # mirrors, so steady-state ticks append nothing).
+        self.flight = FlightRecorder(capacity=flight_ring)
+        # Wire-level trace events (flight_wire, default off): msg_sent at
+        # the outbox decode and msg_delivered at inbox consumption.
+        self._flight_wire = bool(flight_wire)
+        # The tick stamp for delivered events of the dispatch being begun:
+        # the completing tick of that dispatch (self._ticks + window).
+        self._wire_tick = 0
+        # Open commit-latency entries, leader-side: group -> deque of
+        # (block id, submit device tick, span) for blocks this node minted
+        # whose commit has not yet been observed. Purged on group reset.
+        self._lat_open: dict[int, deque] = {}
+        self._h_commit_lat = _m_commit_lat.bind(node=self.self_id)
+        # Group-row tenant tags (workload attribution). Cleared on recycle.
+        self._group_tags: dict[int, str] = {}
+        # While a tick_finish runs, the journal stamp for anything it
+        # triggers is the COMPLETING tick — self._ticks only increments at
+        # the end.
+        self._flight_now: int | None = None
+        # Health plane (utils/health.py, default off): a node-local
+        # HealthMonitor evaluated once per completed tick off the host
+        # mirrors — zero extra device fetches.
+        self.health = (HealthMonitor(groups=groups, node=self.self_id)
+                       if health else None)
+        REGISTRY.add_collect_hook(self, RaftEngine._publish_telemetry)
+
+    @property
+    def _fabric(self):
+        """Device-resident delivery between co-located engines: not ported,
+        so always None."""
+        return None
+
+    @_fabric.setter
+    def _fabric(self, fabric) -> None:
+        if fabric is not None:
+            raise _not_ported("registration with a RouteFabric", "item 7")
+
+    def _flight_tick(self) -> int:
+        """Journal tick stamp: the completing tick while a finish is in
+        progress (see _flight_now), the last completed tick otherwise."""
+        return self._ticks if self._flight_now is None else self._flight_now
+
+    def _publish_telemetry(self) -> None:
+        """Scrape-time gauge refresh (Registry collect hook; held via a
+        weakref so replaced engines retire their publishers)."""
+        node = self.self_id
+        _m_pipe_depth.set(1 if self._pipeline_h is not None else 0, node=node)
+        _m_inbox_backlog.set(
+            len(self._pending_msgs) + len(self._deferred_host)
+            + sum(len(b) for b in self._pending_batches), node=node)
+        _m_flight_seq.set(self.flight.seq, node=node)
+        if self.profiler.enabled:
+            for phase, s in self.profiler.snapshot().items():
+                _m_phase_ms.set(s["total_ms"], node=node, phase=phase)
+
+    def commit_latency(self) -> dict:
+        """This node's proposal→commit latency summary in device ticks
+        ({n, p50, p99, sum}), from the product-path histogram."""
+        return _m_commit_lat.summary(node=self.self_id)
+
+    def set_group_tag(self, g: int, tag: str | None) -> None:
+        """Attribute group ``g``'s leader-side commit latency to ``tag``.
+        ``None`` clears. Attribution only — never replicated, never
+        journaled."""
+        if not (0 <= g < self.P):
+            raise ValueError(f"group {g} out of range (P={self.P})")
+        if tag is None:
+            self._group_tags.pop(g, None)
+        else:
+            self._group_tags[g] = str(tag)
+
+    def group_tag(self, g: int) -> str | None:
+        return self._group_tags.get(g)
+
+    def proposal_backlog(self, group: int) -> int:
+        """Queued-but-unminted proposals for ``group`` (the broker's
+        admission gate)."""
+        return len(self._proposals.get(group, ()))
+
+    def enable_profiling(self, ring: int = 512) -> PhaseProfiler:
+        """Attach (and return) a recording phase profiler; idempotent."""
+        if self.profiler is NULL_PROFILER:
+            self.profiler = PhaseProfiler(ring=ring)
+        return self.profiler
+
+    # ------------------------------------------------------------ intake
+
+    def receive(self, msg) -> None:
+        """Queue a consensus wire message (or columnar batch) for the next
+        tick. Malformed AE spans are dropped here (see module invariant).
+        InstallSnapshot is handled immediately, host-side — it never enters
+        the device inbox."""
+        if isinstance(msg, rpc.MsgBatch):
+            self._receive_batch(msg)
+            return
+        if 0 <= msg.src < self.N:
+            self._h_src_seen[msg.src] = self._ticks
+        if msg.kind == rpc.MSG_PING:
+            return  # pure keepalive: the liveness stamp above is its payload
+        if msg.kind in (rpc.MSG_SNAPSHOT, rpc.MSG_SNAPSHOT_ACK):
+            if self._tick_inflight:
+                # A snapshot install/ack mutates chain + device rows the
+                # in-flight dispatch already snapshotted. Defer to the next
+                # quiesced tick_begin.
+                self._deferred_host.append(msg)
+                self.flight.emit(self._ticks, "pipeline_defer",
+                                 group=msg.group, msg_kind=msg.kind,
+                                 src=msg.src)
+                return
+            if not self._inc_ok(msg):
+                return
+            if msg.kind == rpc.MSG_SNAPSHOT:
+                self._stage_snapshot(msg)
+            else:
+                self._handle_snap_ack(msg)
+            return
+        if msg.kind not in _CONSENSUS_KIND_SET:
+            raise ValueError(f"engine.receive: not a consensus message kind {msg.kind}")
+        if not msg.span_is_valid():
+            log.warning("dropping AE with invalid span g=%d src=%d", msg.group, msg.src)
+            return
+        if not (0 <= msg.group < self.P) or not (0 <= msg.src < self.N):
+            log.warning("dropping message for unknown group/node g=%d src=%d", msg.group, msg.src)
+            return
+        if not self._inc_ok(msg):
+            return
+        if msg.kind in _PAROLE_DROP_KINDS and msg.group in self._parole:
+            return  # on vote parole: abstain from elections (see _reset_group)
+        self._c_in.inc()
+        self._pending_msgs.append(msg)
+
+    def _inc_ok(self, msg: rpc.WireMsg) -> bool:
+        """Row-incarnation guard (consensus-group recycling): a frame
+        stamped with a different incarnation than our local row belongs to
+        the row's previous (or a newer) life — drop it."""
+        if 0 <= msg.group < self.P and msg.inc != self._h_ginc[msg.group]:
+            log.warning("dropping stale-incarnation frame g=%d inc=%d "
+                        "(local %d) kind=%d", msg.group, msg.inc,
+                        self._h_ginc[msg.group], msg.kind)
+            return False
+        return True
+
+    def _receive_batch(self, b: rpc.MsgBatch) -> None:
+        """Validate and queue a columnar batch. Per-entry checks mirror
+        :meth:`receive`: group/src bounds, and AE span integrity for every
+        entry that claims a payload span — an entry that fails is dropped
+        without touching its siblings."""
+        if not (0 <= b.src < self.N):
+            log.warning("dropping batch from unknown src %d", b.src)
+            return
+        self._h_src_seen[b.src] = self._ticks
+        if len(b) > 1 and not (np.diff(b.group) > 0).all():
+            # Our own encoder emits strictly-ascending unique groups
+            # (np.nonzero order); normalize anything else so the
+            # searchsorted lookups below hold.
+            order = np.argsort(b.group, kind="stable")
+            b = rpc.MsgBatch(b.src, b.dst, b.group[order], b.kind_col[order],
+                             b.term[order], b.x[order], b.y[order],
+                             b.z[order], b.ok[order], b.blocks,
+                             inc=b.inc[order])
+            dup = np.zeros(len(b), bool)
+            dup[1:] = b.group[1:] == b.group[:-1]
+            if dup.any():
+                b = b.take(~dup)
+        inb = (b.group >= 0) & (b.group < self.P)
+        # Same whitelist as the single-message path: only device consensus
+        # kinds may enter the inbox.
+        inb &= np.isin(b.kind_col, _CONSENSUS_KINDS)
+        # Row-incarnation guard: entries stamped with another incarnation
+        # belong to a recycled row's previous life.
+        inb &= self._h_ginc[np.clip(b.group, 0, self.P - 1)] == b.inc
+        if self._parole:
+            # Vote parole: a reset group abstains from elections until its
+            # head is re-replicated past its pre-reset ack watermark.
+            par = np.fromiter(self._parole, dtype=b.group.dtype,
+                              count=len(self._parole))
+            inb &= ~(np.isin(b.kind_col, _PAROLE_DROP_ARR)
+                     & np.isin(b.group, par))
+        if not inb.all():
+            log.warning("dropping %d batch entries (unknown group, "
+                        "non-consensus kind, or stale incarnation) src=%d",
+                        int((~inb).sum()), b.src)
+            b = b.take(inb)
+        # AE span integrity, same rules as WireMsg.span_is_valid: an entry
+        # claiming a span (x != y) must carry a parent-linked payload chain
+        # from x to y; a pure heartbeat (x == y) must carry NO blocks.
+        bad: list[int] = []
+        ae = np.nonzero((b.kind_col == rpc.MSG_APPEND) & (b.x != b.y))[0]
+        for i in ae.tolist():
+            grp = int(b.group[i])
+            if grp not in b.blocks:
+                bad.append(grp)  # claims a span, carries no payload
+        for grp, blks in b.blocks.items():
+            i = int(np.searchsorted(b.group, grp))
+            if (i >= len(b.group) or int(b.group[i]) != grp
+                    or int(b.kind_col[i]) != rpc.MSG_APPEND
+                    or not rpc._span_ok(int(b.x[i]), int(b.y[i]), blks)):
+                bad.append(grp)  # orphan, non-AE, or broken/forged span
+        if bad:
+            log.warning("dropping AE with invalid span g=%s src=%d", bad, b.src)
+            keep = ~np.isin(b.group, np.asarray(bad, dtype=b.group.dtype))
+            b = b.take(keep)
+            for grp in bad:
+                b.blocks.pop(grp, None)
+        if len(b):
+            self._c_in.inc(len(b))
+            self._pending_batches.append(b)
+            # Backlog cap per src: beyond 4 pending frames, the OLDEST from
+            # that src is dropped; Raft's retry covers whatever it carried.
+            from_src = [i for i, pb in enumerate(self._pending_batches)
+                        if pb.src == b.src]
+            if len(from_src) > 4:
+                dropped = self._pending_batches.pop(from_src[0])
+                _m_backlog_dropped.inc(len(dropped), node=self.self_id)
+                self.flight.emit(self._ticks, "backlog_drop",
+                                 src=b.src, entries=len(dropped))
+                log.warning("dropping stale batch backlog src=%d (%d entries)",
+                            b.src, len(dropped))
+
+    def propose(self, group: int, payload: bytes) -> asyncio.Future:
+        """Submit a client payload; resolves with the FSM result once the
+        block commits. Fails with NotLeader if this node cannot mint at
+        tick time.
+
+        A payload with the conf-change prefix is a membership mutation: it
+        must target group 0, the leader assigns the node slot at mint time,
+        and commit applies it to the member table instead of the app FSM.
+        """
+        fut = asyncio.get_running_loop().create_future()
+        if is_conf(payload) and group != 0:
+            fut.set_exception(ValueError("conf changes must go through group 0"))
+            return fut
+        if group in self._frozen_groups and not is_migration_fence(payload):
+            # Dual-ownership window: this row is the source of a live
+            # migration. Refuse with the same retryable error as a deposed
+            # leader; the migration FENCE itself must still commit.
+            fut.set_exception(NotLeader(group, -1))
+            return fut
+        span = None
+        if self._request_spans:
+            # Trace context (utils/spans.py): submit time closes the span's
+            # admission phase and opens the queue phase.
+            span = current_span()
+            if span is not None:
+                span.mark("admitted", self._ticks)
+                span.group = group
+        # The third slot is the submit device tick — tick_finish stamps it
+        # onto the minted block for the proposal→commit latency histogram.
+        self._proposals.setdefault(group, []).append(
+            (payload, fut, self._ticks, span))
+        self._prop_groups.add(group)
+        return fut
+
+    def propose_conf(self, change: ConfChange) -> asyncio.Future:
+        """Propose a membership change (resolved at commit)."""
+        return self.propose(0, change.encode())
+
+    # -------------------------------------------------------------- tick
+
+    def tick(self, window: int = 1) -> TickResult:
+        if self._pipeline_h is not None:
+            raise RuntimeError(
+                "pipelined tick in flight; call tick_drain() before tick()")
+        return self.tick_finish(self.tick_begin(window))
+
+    def suggest_window(self, max_window: int) -> int:
+        """Adaptive dispatch-window policy for driver loops.
+
+        Returns ``max_window`` in steady state, 1 when the cluster needs
+        the single-tick schedule:
+
+        * any group I belong to is leaderless — elections MUST run
+          single-tick: a window quantizes every randomized timeout to the
+          window boundary, which de-randomizes candidacy collisions and
+          livelocks convergence;
+        * a snapshot transfer is in flight — each chunk ack would wait a
+          whole window;
+        * vote parole is active (tick_begin would clamp to 1 anyway).
+
+        Pending inbox frames / proposals deliberately do NOT reduce the
+        window: they apply at the window's first tick regardless.
+        """
+        # Apply the same hb_ticks clamp tick_begin will apply, so a driver
+        # that sleeps window * tick_ms never sleeps longer than the engine
+        # actually stepped.
+        max_window = min(int(max_window), self._hb_ticks)
+        if max_window > self._window_hint:
+            # Remember the steady-state window for the keepalive horizon
+            # (see _peer_fresh) even while this call returns 1.
+            self._window_hint = max_window
+        if max_window <= 1:
+            return 1
+        if self._snap_send_off or self._snap_staging or self._parole:
+            return 1
+        leaderless = (self._h_leader < 0) & self._mask_np[:, self.me]
+        return 1 if leaderless.any() else int(max_window)
+
+    def _peer_fresh(self, window: int = 1) -> np.ndarray:
+        """(N,) transport-liveness vector: slots heard from within the
+        keepalive window. Feeds the device's aggregate keepalive (see
+        node_step peer_fresh). The freshness horizon scales with the
+        cluster's STEADY-STATE window (the largest window this engine has
+        been asked for), not the current dispatch: ping arrival spacing is
+        set by the PEERS' windows."""
+        horizon = self.keepalive_window_ticks * max(1, window, self._window_hint)
+        fresh = (self._ticks - self._h_src_seen) <= horizon
+        fresh &= self._active_vec()
+        fresh[self.me] = False
+        return fresh.astype(np.int32)
+
+    def tick_begin(self, window: int = 1) -> dict:
+        """Dispatch one tick's device step WITHOUT waiting for its results.
+
+        Splitting begin/finish lets co-located engines (the in-process
+        cluster) overlap their device work, and is what tick_pipelined
+        builds its double buffer on. Contract: no group mutation between
+        begin and finish of the same engine. receive() IS safe mid-flight:
+        consensus traffic only queues, and host-side snapshot messages
+        (which mutate chain/device rows) are deferred to the next quiesced
+        tick_begin automatically.
+
+        ``window > 1`` folds that many consecutive ticks into the one
+        dispatch (see the window commentary in packed_step.py): the pending
+        inbox applies at the window's first tick, the rest run quiet, and
+        the merged outbox comes back in one fetch. Clamped to hb_ticks (the
+        lossless-merge bound) and disabled while any group is on vote
+        parole (the parole elapsed-hold is re-asserted per dispatch, so a
+        long window would let a paroled timer run).
+        """
+        prof = self.profiler
+        if self._deferred_host and not self._tick_inflight:
+            # Host-side messages (snapshot chunks/acks) deferred while a
+            # tick was in flight: the engine is quiesced here, stage them
+            # before this tick's device step runs.
+            pend, self._deferred_host = self._deferred_host, []
+            for m in pend:
+                self.receive(m)
+        window = max(1, min(int(window), self._hb_ticks))
+        if self._parole:
+            window = 1
+        if window > self._window_hint:
+            self._window_hint = window
+        # Delivered-event stamp for this dispatch (see _flight_wire note).
+        self._wire_tick = self._ticks + window
+        # Rows recycled since the last tick OUTSIDE of tick() were reset
+        # before this tick's device step ran — this tick is already their
+        # new incarnation and must NOT be suppressed.
+        self._recycled_this_tick.clear()
+        dev = self._device
+        if self._parole:
+            # Vote parole: hold every paroled group's election timer at
+            # zero so it can never reach candidacy. Grant-suppression
+            # happens at intake.
+            pidx_l = list(self._parole)
+            hold = np.zeros(self.P, bool)
+            hold[pidx_l] = True
+            self.state = self.state.replace(elapsed=torch.where(
+                host_to(hold, dev), 0, self.state.elapsed))
+            # Keep the host timer mirror in lockstep with the device hold.
+            self._h_elapsed[pidx_l] = 0
+        if self._nxt_fixups:
+            # Last tick's AE-cap send-pointer re-roots, as one scatter just
+            # before the step reads state.nxt (see _drain_nxt_fixups).
+            self._drain_nxt_fixups()
+        pf = self._peer_fresh(window)
+        with prof.phase("inbox"):
+            in10, staged, deferred, deferred_b = self._build_inbox()
+        with prof.phase("stage"):
+            if self._prop_groups:
+                prop_groups = list(self._prop_groups)
+                pg = np.asarray(prop_groups, np.intp)
+                self._scatter_proposal_counts(in10[9], pg, prop_groups)
+            if self._flight_wire:
+                # Same occupancy pass, nonzero form: the stamp AND the
+                # delivered trace come from one scan.
+                gi, si = np.nonzero(in10[0])
+                self._h_last_seen[gi, si] = self._ticks
+                if len(gi):
+                    self.flight.emit_many(
+                        self._wire_tick, "msg_delivered", gi,
+                        in10[1][gi, si], in10[0][gi, si],
+                        si, self.me, "host")
+            else:
+                self._h_last_seen[in10[0] != rpc.MSG_NONE] = self._ticks
+        ready = None
+        with prof.phase("dispatch"):
+            if self._backend == "python":
+                new_state, flat = _py_packed_window(
+                    self.params, self.member, self._me_dev, self.state,
+                    in10, pf, ticks=window)
+            else:
+                new_state, flat = _window_step_fn(window)(
+                    self.params, self.member, self._me_dev, self.state,
+                    host_to(in10, dev), host_to(pf, dev))
+            if flat.is_cuda:
+                # The tick's one device->host copy, started now into pinned
+                # memory; tick_fetch waits for it alone.
+                flat = flat.to("cpu", non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+        h = {"flat": flat, "ready": ready, "staged": staged, "window": window}
+        self.state = new_state
+        self._pending_msgs = deferred
+        self._pending_batches = deferred_b
+        # Snapshot the proposal queues INTO the tick handle: the device was
+        # told exactly these counts (inbox row 9), so tick_finish must mint
+        # and resolve exactly these payloads. A proposal enqueued between
+        # begin and finish stays in self._proposals for the NEXT tick.
+        h["props"] = {g: self._proposals.pop(g) for g in list(self._prop_groups)}
+        self._prop_groups.clear()
+        self._tick_inflight = True
+        return h
+
+    def tick_fetch(self, h: dict) -> dict:
+        """Materialize the tick's device→host transfer (blocking) WITHOUT
+        any of the host-side mirror/decode work. Idempotent; tick_finish
+        calls it implicitly. Pipelined drivers call it explicitly so the
+        next tick_begin can dispatch before tick_finish's host work runs
+        (the host work then overlaps the new dispatch's device compute)."""
+        if "flat_np" not in h:
+            with self.profiler.phase("fetch"):
+                ready = h.pop("ready")
+                if ready is not None:
+                    ready.synchronize()
+                h["flat_np"] = h["flat"].numpy()
+            self._tick_inflight = False
+        return h
+
+    def tick_pipelined(self, window: int = 1) -> TickResult:
+        """Double-buffered tick: fetch tick t's results, dispatch tick t+1,
+        THEN run tick t's host-side finish (decode, chain append, FSM apply)
+        while the device computes t+1.
+
+        Returns tick t's TickResult — an empty one on the priming call, and
+        the pipeline stays one tick deep thereafter. Outbound messages
+        therefore reach peers one tick later than under tick(), per message
+        hop. Deferred host-side messages (snapshot chunks) quiesce the
+        pipeline for one round: tick t finishes fully before t+1
+        dispatches. Call tick_drain() before switching back to tick()."""
+        prev = self._pipeline_h
+        self._pipeline_h = None
+        res: TickResult | None = None
+        if prev is not None:
+            self.tick_fetch(prev)  # wait out tick t's device step
+            if self._deferred_host:
+                # Snapshot traffic needs a quiesced engine: close out tick
+                # t before tick_begin stages it and dispatches t+1.
+                res = self.tick_finish(prev)
+                prev = None
+        h = self.tick_begin(window)
+        # Publish the in-flight handle BEFORE tick t's finish runs: a group
+        # reset/recycle inside that finish happens AFTER tick t+1's state
+        # was snapshotted by the dispatch, so _reset_group records the row
+        # on THIS handle (skip_rows) and finish(t+1) discards its stale
+        # fetched values.
+        self._pipeline_h = h
+        if prev is not None:
+            res = self.tick_finish(prev)  # overlaps t+1's device compute
+        return res if res is not None else TickResult()
+
+    def tick_drain(self) -> TickResult | None:
+        """Finish the in-flight pipelined tick (shutdown / mode switch);
+        None if the pipeline is empty."""
+        h, self._pipeline_h = self._pipeline_h, None
+        return self.tick_finish(h) if h is not None else None
+
+    @property
+    def pipeline_window(self) -> int:
+        """Ticks the in-flight pipelined dispatch will execute — 0 when the
+        pipeline is empty."""
+        return int(self._pipeline_h["window"]) if self._pipeline_h else 0
+
+    def tick_finish(self, h: dict) -> TickResult:
+        try:
+            return self._tick_finish(h)
+        finally:
+            # Always restore the out-of-tick journal stamp — an exception
+            # mid-finish must not freeze later forensic emits at the dead
+            # tick.
+            self._flight_now = None
+
+    def _tick_finish(self, h: dict) -> TickResult:
+        self.tick_fetch(h)  # no-op if the pipelined driver already fetched
+        # Rows reset/recycled AFTER this tick was dispatched but before
+        # this finish (pipelined mode) — their fetched values predate the
+        # reset exactly like a mid-tick recycle.
+        self._recycled_this_tick |= h.pop("skip_rows", set())
+        staged = h["staged"]
+        # The proposal queues THIS tick presented to the device (snapshotted
+        # by tick_begin); self._proposals may already hold newer entries for
+        # the next tick and must not be touched here.
+        props = h["props"]
+        prop_gs = set(props)
+        # ONE flat fetch holding the (10, P) scalar mirror and the
+        # (9, P, N) outbox.
+        flat = h["flat_np"]
+        cut = 10 * self.P
+        sv = flat[:cut].reshape(10, self.P).astype(np.int64, copy=False)
+        ov = flat[cut:].reshape(9, self.P, self.N)
+        (n_term, n_voted, n_role, n_leader,
+         n_head_t, n_head_s, n_commit_t, n_commit_s,
+         minted_a, became_a) = sv
+        head_all = (n_head_t << 32) | n_head_s
+        commit_all = (n_commit_t << 32) | n_commit_s
+        # Rows needing host work: any mirrored field moved (vote-only rows
+        # included — their durable vol record and mirrors must update),
+        # outbox traffic, and rows with queued proposals. ``proc`` holds
+        # their group ids and the v/ov_c arrays their fetched values,
+        # position-aligned.
+        active = (became_a != 0) | (minted_a != 0)
+        active |= head_all != self._h_head
+        active |= commit_all != self._h_commit
+        active |= n_role != self._h_role
+        active |= n_leader != self._h_leader
+        active |= (n_term != self._h_term) | (n_voted != self._h_voted)
+        active |= (ov[0] != rpc.MSG_NONE).any(axis=1)  # outbox traffic
+        if prop_gs:
+            active[list(prop_gs)] = True
+        proc = np.nonzero(active)[0].astype(np.int64)
+        v = sv[:, proc]
+        ov_c = ov[:, proc, :]
+        (n_term, n_voted, n_role, n_leader,
+         n_head_t, n_head_s, n_commit_t, n_commit_s, minted, became) = v
+        head_new = (n_head_t << 32) | n_head_s
+        commit_new = (n_commit_t << 32) | n_commit_s
+
+        if self._parole:
+            pos_of = {int(g): i for i, g in enumerate(proc)}
+            # Lift parole once legitimate replication has carried the head
+            # back past the pre-reset ack watermark: from here on the node's
+            # chain again contains everything it ever acknowledged.
+            for g, wm in list(self._parole.items()):
+                pos = pos_of.get(g)
+                head = int(head_new[pos]) if pos is not None else int(self._h_head[g])
+                if head >= wm:
+                    log.info("g=%d vote parole lifted (head %#x >= "
+                             "watermark %#x)", g, head, wm)
+                    self._lift_parole(g)
+
+        res = TickResult()
+        reset_rows: set[int] = set()
+        # The device tick that just completed (self._ticks increments at the
+        # END of this finish) — the stamp for journal events and the commit-
+        # latency clock. Published via _flight_now so emits INSIDE this
+        # finish stamp the same tick.
+        t_now = self._ticks + h.get("window", 1)
+        self._flight_now = t_now
+        prof = self.profiler
+        _t_apply = time.perf_counter_ns() if prof.enabled else 0
+        # Host work is only needed where host-visible state moved. Rows
+        # whose only change is outbox traffic or term/vote are handled by
+        # the vectorized passes below.
+        need = ((became != 0) | (minted != 0)
+                | (head_new != self._h_head[proc])
+                | (commit_new != self._h_commit[proc])
+                | ((self._h_role[proc] == LEADER) & (n_role != LEADER)))
+        if prop_gs:
+            need |= np.isin(proc, np.fromiter(prop_gs, np.int64, len(prop_gs)))
+        need_rows = np.nonzero(need)[0].tolist()
+        for pos in need_rows:
+            g = int(proc[pos])
+            if g in self._recycled_this_tick:
+                # Recycled by a group-0 commit hook earlier in THIS loop
+                # (proc order is ascending, so group 0 comes first): every
+                # snapshot for this row predates the reset. Proposals
+                # snapshotted for the row at tick_begin must FAIL, not leak.
+                for _payload, fut, _t_sub, _span in props.pop(g, ()):
+                    if fut is not None and not fut.done():
+                        fut.set_exception(NotLeader(g, -1))
+                continue
+            ch = self.chains[g]
+            new_head = int(head_new[pos])
+
+            # Leadership transitions.
+            if became[pos]:
+                res.became_leader.append(g)
+                self.flight.emit(t_now, "election_won", group=g,
+                                 term=int(n_term[pos]), leader=self.me)
+                ch.append(int(n_term[pos]), b"")  # no-op liveness block
+                if g == 0:
+                    # A deposed leader's conf block may sit uncommitted in
+                    # our log and commit later under us — re-arm the
+                    # single-change-in-flight guard from the suffix.
+                    self._conf_pending = self._scan_conf_pending()
+            was_leader = self._h_role[g] == LEADER
+            if was_leader and n_role[pos] != LEADER:
+                res.lost_leadership.append(g)
+                self.flight.emit(t_now, "leadership_lost", group=g,
+                                 term=int(n_term[pos]),
+                                 leader=int(n_leader[pos]))
+                drv = self.drivers.get(g)
+                if drv:
+                    drv.drop_waiters(NotLeader(g, int(n_leader[pos])))
+                if g == 0:
+                    self._conf_pending = None
+                    for fut in self._conf_waiters.values():
+                        if not fut.done():
+                            fut.set_exception(NotLeader(g, int(n_leader[pos])))
+                    self._conf_waiters.clear()
+
+            # Minted payload blocks (leader): mirror device ids exactly.
+            queue = props.get(g, [])
+            if minted[pos]:
+                if minted[pos] != len(queue):
+                    raise RuntimeError(
+                        f"device minted {minted[pos]} blocks but host holds "
+                        f"{len(queue)} payloads (group {g})"
+                    )
+                for payload, fut, t_sub, span in queue:
+                    conf_err = None
+                    if is_conf(payload):
+                        # Leader-side conf admission: assign the slot, and
+                        # enforce one change in flight. The device already
+                        # counted this mint, so a refused change still
+                        # appends — as a harmless no-op block.
+                        try:
+                            if self._conf_pending is not None:
+                                raise ValueError(
+                                    "a membership change is already in flight")
+                            change = self.members.assign(ConfChange.decode(payload))
+                            payload = change.encode()
+                        except ValueError as e:
+                            conf_err, payload = e, b""
+                    blk = ch.append(int(n_term[pos]), payload)
+                    if span is not None:
+                        # Queue phase closes at mint; the span rides the
+                        # latency deque to the commit site.
+                        span.mark("minted", t_now)
+                        span.leader = self.self_id
+                    # Open a commit-latency entry for the minted block
+                    # (block ids are appended in mint order, so the deque
+                    # stays id-sorted).
+                    lat_q = self._lat_open.get(g)
+                    if lat_q is None:
+                        lat_q = self._lat_open[g] = deque(maxlen=4096)
+                    lat_q.append((blk.id, t_sub, span))
+                    drv = self.drivers.get(g)
+                    if is_conf(payload):
+                        self._conf_pending = blk.id
+                        if fut is not None and not fut.done():
+                            self._conf_waiters[blk.id] = fut
+                    elif fut is not None and not fut.done():
+                        if conf_err is not None:
+                            fut.set_exception(conf_err)
+                        elif drv is not None:
+                            drv.notify(blk.id, fut)
+                        else:
+                            fut.set_result(b"")
+                props.pop(g, None)
+            elif queue:
+                for _, fut, _, _ in queue:
+                    if fut is not None and not fut.done():
+                        fut.set_exception(NotLeader(g, int(n_leader[pos])))
+                props.pop(g, None)
+
+            # Accepted spans (follower): reconcile the chain to the device's
+            # new head by walking parent pointers through the staged blocks.
+            # Only the branch the device actually adopted is persisted, in
+            # ONE KV transaction (Chain.extend_many).
+            if new_head != self._h_head[g] and not minted[pos] and not became[pos]:
+                by_id = {b.id: b for b in staged.get(g, [])}
+                path = []
+                cur = new_head
+                while not ch.has(cur):
+                    blk = by_id.get(cur)
+                    if blk is None:
+                        raise RuntimeError(
+                            f"chain/device divergence g={g}: no payload for {cur:#x}"
+                        )
+                    path.append(blk)
+                    cur = blk.parent
+                path.reverse()
+                ch.extend_many(path)
+                if ch.head != new_head:
+                    ch.force_head(new_head)
+
+            # Commit advancement -> FSM apply (half-open (old, new], every node).
+            new_commit = int(commit_new[pos])
+            if new_commit != ch.committed:
+                blocks = ch.commit(new_commit)
+                res.committed[g] = new_commit
+                _m_committed.inc(len(blocks), node=self.self_id)
+                committed_spans = []
+                lat_q = self._lat_open.get(g)
+                if lat_q:
+                    # Leader-side commit latency: every open mint entry the
+                    # commit id passes is either committed (observe) or was
+                    # overwritten by another leader's branch (drop).
+                    cids = {b.id for b in blocks}
+                    tag = self._group_tags.get(g)
+                    while lat_q and lat_q[0][0] <= new_commit:
+                        bid, t_sub, span = lat_q.popleft()
+                        if bid in cids:
+                            self._h_commit_lat.observe(t_now - t_sub)
+                            if span is not None:
+                                span.mark("committed", t_now)
+                                committed_spans.append(span)
+                            if tag is not None:
+                                _m_commit_lat_tenant.observe(
+                                    t_now - t_sub, node=self.self_id,
+                                    tenant=tag)
+                    if not lat_q:
+                        self._lat_open.pop(g, None)
+                app_blocks = []
+                for blk in blocks:
+                    if is_conf(blk.data):
+                        self._apply_conf_block(g, blk, res)
+                    else:
+                        app_blocks.append(blk)
+                drv = self.drivers.get(g)
+                if drv:
+                    try:
+                        drv.apply(app_blocks)
+                    except ReplicaDiverged as e:
+                        # The FSM proved its local state cannot be the fold
+                        # of the committed sequence: rewind the whole group
+                        # to an empty replica (with vote parole) and let
+                        # the leader re-sync it from scratch.
+                        log.error("g=%d replica diverged (%s); resetting "
+                                  "for full re-sync", g, e)
+                        drv.drop_waiters(NotLeader(g, int(n_leader[pos])))
+                        reset_fsm = getattr(drv.fsm, "reset", None)
+                        if callable(reset_fsm):
+                            reset_fsm()
+                        self._reset_group(g)
+                        self._h_head[g] = GENESIS
+                        self._h_commit[g] = GENESIS
+                        reset_rows.add(g)
+                        continue
+                for span in committed_spans:
+                    span.mark("applied", t_now)
+
+            # Refresh the chain mirrors for this group (the active-row
+            # selector above diffs against these next tick).
+            self._h_head[g] = ch.head
+            self._h_commit[g] = ch.committed
+
+        # Durable volatile state: (term, voted_for) is ONE record written in
+        # one put — a crash can never pair a new term with a stale vote.
+        vol_changed = (n_term != self._h_term[proc]) | (n_voted != self._h_voted[proc])
+        for pos in np.nonzero(vol_changed)[0]:
+            self._store_vol(int(proc[pos]), int(n_term[pos]), int(n_voted[pos]))
+
+        if log.isEnabledFor(10):  # TRACE: per-group role transitions
+            for pos in np.nonzero(n_role != self._h_role[proc])[0]:
+                g = int(proc[pos])
+                log.log(10, "n%d g=%d role %d->%d term=%d head=%#x voted=%d",
+                        self.self_id, g, int(self._h_role[g]),
+                        int(n_role[pos]), int(n_term[pos]),
+                        int(head_new[pos]), int(n_voted[pos]))
+        # Rows reset/recycled DURING this tick: their fetched values
+        # predate the reset — keep the reset's own mirror writes instead.
+        keep = np.asarray(
+            [int(g) not in reset_rows and int(g) not in self._recycled_this_tick
+             for g in proc], bool) if (reset_rows or self._recycled_this_tick) \
+            else np.ones(len(proc), bool)
+        upd = proc[keep]
+        # Flight journal, derived from the SAME mirror diff the adoption
+        # below consumes. Steady-state ticks diff to nothing.
+        n_term_k, n_role_k, n_lead_k = n_term[keep], n_role[keep], n_leader[keep]
+        old_term_k, old_role_k = self._h_term[upd], self._h_role[upd]
+        old_lead_k = self._h_leader[upd]
+        fl = self.flight
+        for i in np.nonzero(n_term_k != old_term_k)[0]:
+            fl.emit(t_now, "term_bump", group=int(upd[i]),
+                    term=int(n_term_k[i]), leader=int(n_lead_k[i]),
+                    prev_term=int(old_term_k[i]))
+        # Observed leader changes, excluding rows already journaled as
+        # election_won / leadership_lost by the transition loop above.
+        lead_chg = ((n_lead_k != old_lead_k) & (became[keep] == 0)
+                    & ~((old_role_k == LEADER) & (n_role_k != LEADER)))
+        for i in np.nonzero(lead_chg)[0]:
+            fl.emit(t_now, "leader_change", group=int(upd[i]),
+                    term=int(n_term_k[i]), leader=int(n_lead_k[i]),
+                    prev_leader=int(old_lead_k[i]))
+        el_lost = (((old_role_k == CANDIDATE) | (old_role_k == PRECANDIDATE))
+                   & (n_role_k == FOLLOWER))
+        for i in np.nonzero(el_lost)[0]:
+            fl.emit(t_now, "election_lost", group=int(upd[i]),
+                    term=int(n_term_k[i]), leader=int(n_lead_k[i]))
+        self._h_term[upd] = n_term_k
+        self._h_voted[upd] = n_voted[keep]
+        self._h_role[upd] = n_role_k
+        self._h_leader[upd] = n_lead_k
+
+        if self._conf_notify:
+            res.conf_changes.extend(self._conf_notify)
+            self._conf_notify.clear()
+        if prof.enabled:
+            prof.add_ns("apply", time.perf_counter_ns() - _t_apply)
+        # Skip rows reset mid-tick too, not just recycled ones: a
+        # ReplicaDiverged reset discards the blocks this tick's computed
+        # AE-ack claims to hold.
+        skip = self._recycled_this_tick | reset_rows
+        with prof.phase("decode"):
+            res.outbound = self._decode_outbox(ov_c, proc, skip=skip or None)
+        if self._snap_acks:
+            # Snapshot-transfer acks queued by receive() ride this tick's
+            # outbound.
+            res.outbound.extend(self._snap_acks)
+            self._snap_acks.clear()
+        if self.N > 1:
+            # Aggregate keepalive, emitted by the ENGINE so it works under
+            # any driver loop: every active peer that got no frame this
+            # tick gets a MSG_PING, keeping its peer_fresh entry for this
+            # node warm.
+            sent_to = {m.dst for m in res.outbound}
+            for slot in self.members.active_slots():
+                if slot != self.me and slot not in sent_to:
+                    res.outbound.append(rpc.WireMsg(
+                        kind=rpc.MSG_PING, src=self.me, dst=slot))
+        if self._snap_send_off or self._snap_staging:
+            self._gc_snap_transfers()
+        self._ticks += h.get("window", 1)
+        self._maybe_snapshot()
+        _m_ticks.inc(node=self.self_id)
+        if res.became_leader:
+            _m_elections.inc(len(res.became_leader), node=self.self_id)
+        if res.outbound:
+            # Count per-entry messages (a MsgBatch is many), keeping the
+            # out/in counters symmetric with _receive_batch's inc(len(b)).
+            _m_out.inc(sum(len(m) if isinstance(m, rpc.MsgBatch) else 1
+                           for m in res.outbound), node=self.self_id)
+        _m_led.set(int((self._h_role == LEADER).sum()), node=self.self_id)
+        if self.health is not None:
+            # Once per completed tick, after the mirrors are adopted: pure
+            # host-mirror reads, journaled to the monitor's own ring.
+            self.health.observe(self._ticks, self.health_sample())
+        return res
+
+    # ------------------------------------------------------------ lookups
+
+    def health_sample(self) -> dict:
+        """Zero-fetch detector inputs off the host mirrors: commit seq
+        (progress), open proposal + unobserved-commit ledgers (pending),
+        and the known-leader mirror (flap). Strictly read-only."""
+        pend = np.zeros(self.P, np.int64)
+        for g, q in self._proposals.items():
+            pend[g] += len(q)
+        for g, q in self._lat_open.items():
+            pend[g] += len(q)
+        return {
+            "progress": self._h_commit & 0xFFFFFFFF,
+            "pending": pend,
+            "leaders": self._h_leader,
+        }
+
+    def has_group(self, group: int) -> bool:
+        return 0 <= group < self.P
+
+    def is_leader(self, group: int = 0) -> bool:
+        return self.has_group(group) and self._h_role[group] == LEADER
+
+    def leader_index(self, group: int = 0) -> int:
+        return int(self._h_leader[group]) if self.has_group(group) else -1
+
+    def leader_id(self, group: int = 0) -> int | None:
+        idx = self.leader_index(group)
+        return self.node_ids[idx] if 0 <= idx < self.N else None
+
+    def term(self, group: int = 0) -> int:
+        return int(self._h_term[group])
+
+    def in_sync_map(self, groups, max_lag: int = 64,
+                    liveness_ticks: int = 30) -> dict[int, set[int]]:
+        """Live ISR for every requested group this node leads, in ONE
+        device fetch: member slots whose confirmed ``match`` pointer is
+        within ``max_lag`` blocks of the leader's head AND that have sent us
+        any consensus traffic within ``liveness_ticks``. Self is always
+        included. Groups this node does not lead are absent from the
+        result. Cost: one (2, P, N) transfer per CALL (not per group) —
+        batch all partitions of a Metadata request into one call."""
+        led = [g for g in groups if self.is_leader(g)]
+        if not led:
+            return {}
+        both = torch.stack([self.state.match.s,
+                            self.member.to(torch.int32)]).cpu().numpy()
+        ms, mask = both[0], both[1].astype(bool)
+        recent = (self._ticks - self._h_last_seen) <= liveness_ticks
+        out: dict[int, set[int]] = {}
+        for g in led:
+            head_s = id_seq(self.chains[g].head)
+            ok = mask[g] & (head_s - ms[g] <= max_lag) & recent[g]
+            slots = set(np.nonzero(ok)[0].tolist())
+            slots.add(self.me)
+            out[g] = slots
+        return out
+
+    def in_sync_slots(self, group: int, max_lag: int = 64) -> set[int] | None:
+        """Single-group view of :meth:`in_sync_map`; None when not leader."""
+        return self.in_sync_map([group], max_lag).get(group)
+
+    def in_sync_ids_map(self, groups, max_lag: int = 64) -> dict[int, list[int]]:
+        """node-id form of :meth:`in_sync_map` (one bulk fetch)."""
+        return {
+            g: [i for i in (self.node_ids[s] for s in sorted(slots))
+                if i is not None]
+            for g, slots in self.in_sync_map(groups, max_lag).items()
+        }
+
+    def in_sync_ids(self, group: int, max_lag: int = 64) -> list[int] | None:
+        return self.in_sync_ids_map([group], max_lag).get(group)
+
+    def debug_state(self) -> dict:
+        """Cluster-state view for a /state endpoint: an on-demand read of
+        the host mirrors."""
+        out = {
+            "node": self.self_id,
+            "groups": self.P,
+            "groups_led": int((self._h_role == LEADER).sum()),
+            "ticks": self._ticks,
+        }
+        if self.P <= 64:  # full per-group detail only at small scale
+            out["detail"] = [
+                {
+                    "group": g,
+                    "term": int(self._h_term[g]),
+                    "role": int(self._h_role[g]),
+                    "leader": self.leader_id(g),
+                    "commit": self.chains[g].committed,
+                    "head": self.chains[g].head,
+                    "floor": self.chains[g].floor,
+                }
+                for g in range(self.P)
+            ]
+        return out
+
+    # ------------------------------------------------------------ helpers
+
+    def _load_vol(self, g: int) -> tuple[int, int]:
+        """(term, voted_for) — one record so the pair is crash-atomic."""
+        raw = self.kv.get(b"g%d:vol" % g)
+        if raw is not None:
+            return (int.from_bytes(raw[:8], "big", signed=True),
+                    int.from_bytes(raw[8:16], "big", signed=True))
+        # Migration from the pre-atomic split keys (term / voted_for as two
+        # records): read once here; the next vote/term change rewrites the
+        # pair as a single record.
+        t = self.kv.get(b"g%d:vol:term" % g)
+        v = self.kv.get(b"g%d:vol:voted" % g)
+        return (0 if t is None else int.from_bytes(t, "big", signed=True),
+                -1 if v is None else int.from_bytes(v, "big", signed=True))
+
+    def _store_vol(self, g: int, term: int, voted: int) -> None:
+        self.kv.put(b"g%d:vol" % g,
+                    term.to_bytes(8, "big", signed=True)
+                    + voted.to_bytes(8, "big", signed=True))

@@ -11,9 +11,11 @@ import sys
 import pytest
 import torch
 
-from josefine_tpu_torch import bench, interop
+from josefine_tpu_torch import bench, bench_engine, interop
 from josefine_tpu_torch.models import chained_raft as cr, types
 from josefine_tpu_torch.ops import _build
+from josefine_tpu_torch.raft.engine import RaftEngine
+from josefine_tpu_torch.utils.kv import MemKV
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +42,11 @@ def test_port_imports_no_jax():
     assert out["bad"] == [], f"the port loaded {out['bad']}"
     for name in ("josefine_tpu_torch.interop", "josefine_tpu_torch.bench",
                  "josefine_tpu_torch.ops.fused_step", "josefine_tpu_torch.ops._build",
-                 "josefine_tpu_torch.models.chained_raft"):
+                 "josefine_tpu_torch.models.chained_raft", "josefine_tpu_torch.models.py_step",
+                 "josefine_tpu_torch.raft.engine", "josefine_tpu_torch.raft.packed_step",
+                 "josefine_tpu_torch.bench_engine",
+                 *(f"josefine_tpu_torch.utils.{m}" for m in (
+                     "tracing", "kv", "metrics", "profiling", "flight", "spans", "health"))):
         assert name in out["imported"]
     after = os.listdir(_build.BUILD_DIR) if os.path.isdir(_build.BUILD_DIR) else []
     assert after == before, "importing the port must build nothing"
@@ -49,7 +55,8 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("fn", [types.step_params, types.empty_msgs, cr.init_state,
                                 cr.empty_inbox, bench.run, interop.state_from_numpy,
                                 interop.msgs_from_numpy, interop.params_from_numpy,
-                                interop.member_from_numpy, interop.peer_fresh_from_numpy])
+                                interop.member_from_numpy, interop.peer_fresh_from_numpy,
+                                RaftEngine.__init__, bench_engine.run])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -60,6 +67,8 @@ def test_default_device_raises_without_a_card():
         return
     for call in (types.step_params, lambda: cr.init_state(2, 3),
                  lambda: cr.empty_inbox(2, 3), bench.run,
-                 lambda: interop.member_from_numpy([[True, False]])):
+                 lambda: interop.member_from_numpy([[True, False]]),
+                 lambda: RaftEngine(MemKV(), [1, 2, 3], 1, groups=4),
+                 lambda: bench_engine.run(4, ticks=1, warmup=1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from josefine_tpu.models import chained_raft as jcr
+from josefine_tpu.models.types import step_params as jax_step_params
+from josefine_tpu.raft import packed_step as jps
 from josefine_tpu_torch import interop
 
 STATE_NAMES = ("term", "voted_for", "role", "leader", "head.t", "head.s", "commit.t",
@@ -103,3 +105,29 @@ def random_inbox_leaves(rng: np.random.Generator, P: int, N: int) -> list[np.nda
     i32 = lambda lo, hi: rng.integers(lo, hi, (P, N, N)).astype(np.int32)
     return [i32(0, 7), i32(0, 7), i32(0, 4), i32(0, 10), i32(0, 4), i32(0, 12),
             i32(0, 4), i32(0, 10), i32(0, 2)]
+
+
+def random_params(rng: np.random.Generator):
+    """JAX step params with small random timers, pre-vote on or off."""
+    return jax_step_params(timeout_min=int(rng.integers(2, 5)),
+                           timeout_max=int(rng.integers(5, 10)),
+                           hb_ticks=int(rng.integers(1, 4)),
+                           prevote=int(rng.integers(0, 2)))
+
+
+def random_case(rng: np.random.Generator, P: int, N: int, me: int):
+    """One node's view (slot ``me``) of a random (P, N) state, a random
+    packed (10, P, N) engine input (nine message rows and the proposal-count
+    row), a random member mask and optional keepalive flags, as numpy."""
+    view = [a[:, me] for a in random_state_leaves(rng, P, N)]
+    in10 = np.zeros((10, P, N), np.int32)
+    in10[:9] = np.stack([a[:, 0] for a in random_inbox_leaves(rng, P, N)], 0)
+    in10[9, :, 0] = rng.integers(0, 3, P)
+    member = rng.random((P, N)) < 0.85
+    pf = None if rng.random() < 0.3 else rng.integers(0, 2, N).astype(np.int32)
+    return view, in10, member, pf
+
+
+def jax_view_template(P: int, N: int, me: int):
+    """A JAX node-view NodeState of the right structure, for ``to_jax``."""
+    return jps._node_view(jcr.init_state(P, N)[0], me)
