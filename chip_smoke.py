@@ -48,6 +48,22 @@ Phases (any failure raises, and the script exits non-zero without a result):
    tick, committed blocks/s, commit latency, host ms per engine phase, and
    the window step's own time (CUDA events) and kernel count
    (``torch.profiler``).
+6. the engine's scale path on the card (sparse packed IO and the active-set
+   scheduler; PyTorch ops only, no hand kernel). 6a: a 3-engine cluster on
+   the card and the same cluster on the CPU at P = 8192, 110 single ticks
+   under a proposal drizzle, once with sparse IO and once with sparse IO
+   plus the active set, every engine's compaction capacity set to 64 at the
+   start: on every tick the encoded bytes of every outbound message, every
+   host mirror, every state leaf and the scheduler's counts must be equal,
+   and no card engine's ``tick_begin`` may wait for the device except the
+   active set's counted refetch on re-entry after a fallback tick. The
+   sparse run must overflow the capacity at least once (its shrinks are
+   printed); the active run must show fallback ticks, compacted ticks and a
+   refetch. 6b: ``bench_engine.run`` at P = 100,000 (sparse IO, the
+   engines' default there; 256 proposals per round). 6c: the same with the
+   active set and ``active_frac=0.01`` (1,000 proposals per round). Each
+   must leave exactly one leader per group and commit blocks in the timed
+   rounds, and prints the numbers of 5b plus the active set's counts.
 
 The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
@@ -169,14 +185,36 @@ def tick_loop_sass(so_path: str, n: int) -> dict:
     return best
 
 
-def engine_parity(dev, P: int = 512) -> None:
-    """Phase 5a: the same 3-engine cluster on the card and on the CPU, fed
-    the same traffic. Raises on the first tick where an outbound message's
-    bytes, a host mirror or a device state leaf differ. AppendEntries carry
-    at most 2 blocks, so the partitioned engine catches up through capped
-    frames and send-pointer fixups. The card engines' ``tick_begin`` runs
-    under CUDA's sync debug mode set to error: a host wait inside it
-    raises."""
+class _ListFsm:
+    def __init__(self):
+        self.applied = []
+
+    def transition(self, data):
+        self.applied.append(bytes(data))
+        return b""
+
+
+def _sched(e) -> tuple:
+    """The sparse capacity and the active-set scheduler's state and counts."""
+    return (e._k_out, e._k_out_quiet, e.active_sched_ticks, e.active_sched_rows,
+            e.active_fallback_ticks, e.active_refetches, e._timers_stale,
+            sorted(e._force_active))
+
+
+def _twin_run(dev, P: int, ticks: int, seed: int, window=lambda t: 1, cut=lambda t: (),
+              setup=None, on_tick=None, **engine_kw):
+    """The same 3-engine cluster on the card (``dev``) and on the CPU, fed
+    the same traffic for ``ticks`` split-phase rounds: from tick 20, every
+    second tick, one payload each for group 0 and 16 random groups, to
+    whichever engine leads; messages are delivered unless an end is in
+    ``cut(t)``. Raises on the first tick where an outbound message's bytes,
+    a host mirror, a state leaf or the scheduler's state (:func:`_sched`)
+    differ. A card engine's ``tick_begin`` runs under CUDA's sync debug
+    mode set to error, so a host wait inside it raises, except the active
+    set's counted refetch (``_refetch_wake_inputs``). ``setup(engine)`` runs
+    on every engine before the first tick, ``on_tick(t, card engines)``
+    after every tick. Returns the card engines, both sides' group-0 FSMs and
+    the number of messages compared."""
     import asyncio
 
     import numpy as np
@@ -187,29 +225,33 @@ def engine_parity(dev, P: int = 512) -> None:
     from josefine_tpu_torch.raft.engine import RaftEngine
     from josefine_tpu_torch.utils.kv import MemKV
 
-    class Fsm:
-        def __init__(self):
-            self.applied = []
-
-        def transition(self, data):
-            self.applied.append(bytes(data))
-            return b""
-
     def cluster(device):
-        fsms = [Fsm() for _ in range(3)]
+        fsms = [_ListFsm() for _ in range(3)]
         engines = [RaftEngine(MemKV(), [1, 2, 3], i + 1, groups=P, fsms={0: fsms[i]},
                               params=step_params(timeout_min=3, timeout_max=8, hb_ticks=16,
                                                  device=device),
-                              base_seed=i, max_append_entries=2, device=device)
+                              base_seed=i, device=device, **engine_kw)
                    for i in range(3)]
         return engines, fsms
 
-    def begin(e, window):
+    def allow_refetch(e):
+        inner = e._refetch_wake_inputs
+
+        def refetch():
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return inner()
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        e._refetch_wake_inputs = refetch
+
+    def begin(e, w):
         if not e.state.term.is_cuda:
-            return e.tick_begin(window)
+            return e.tick_begin(w)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return e.tick_begin(window)
+            return e.tick_begin(w)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
@@ -219,17 +261,18 @@ def engine_parity(dev, P: int = 512) -> None:
 
     async def run():
         sides = [cluster(dev), cluster("cpu")]
-        cut = set()
-        rng = np.random.default_rng(11)
-        sent = fixups = 0
-        for t in range(70):
-            window = 1 if t < 40 else 4
-            cut = {2} if 45 <= t < 55 else set()
+        for e in sides[0][0] + sides[1][0]:
+            if setup is not None:
+                setup(e)
+            if e.state.term.is_cuda:
+                allow_refetch(e)
+        rng = np.random.default_rng(seed)
+        sent = 0
+        for t in range(ticks):
             results = []
             for engines, _ in sides:
-                hs = [begin(e, e.suggest_window(window)) for e in engines]
+                hs = [begin(e, e.suggest_window(window(t))) for e in engines]
                 results.append([e.tick_finish(h) for e, h in zip(engines, hs)])
-            fixups += sum(bool(e._nxt_fixups) for e in sides[0][0])
             for i, (a, b) in enumerate(zip(*results)):
                 wa, wb = [m.encode() for m in a.outbound], [m.encode() for m in b.outbound]
                 if wa != wb:
@@ -238,39 +281,61 @@ def engine_parity(dev, P: int = 512) -> None:
             for (engines, _), res in zip(sides, results):
                 for r in res:
                     for m in r.outbound:
-                        if m.src not in cut and m.dst not in cut:
+                        if m.src not in cut(t) and m.dst not in cut(t):
                             engines[m.dst].receive(m)
             for i, (ea, eb) in enumerate(zip(sides[0][0], sides[1][0])):
                 ma, mb = mirrors(ea), mirrors(eb)
                 for k in ma:
                     if not np.array_equal(ma[k], mb[k]):
                         raise AssertionError(f"engine parity: tick {t} engine {i}: {k} differs")
+                if _sched(ea) != _sched(eb):
+                    raise AssertionError(f"engine parity: tick {t} engine {i}: scheduler "
+                                         f"{_sched(ea)} != {_sched(eb)}")
                 for j, (x, y) in enumerate(zip(interop.state_to_numpy(ea.state),
                                                interop.state_to_numpy(eb.state))):
                     if not np.array_equal(x, y):
                         raise AssertionError(
                             f"engine parity: tick {t} engine {i}: state leaf {j} differs")
+            if on_tick is not None:
+                on_tick(t, sides[0][0])
             if t >= 20 and t % 2 == 0:
                 for g in sorted(set(rng.integers(0, P, 16).tolist()) | {0}):
                     for ea, eb in zip(sides[0][0], sides[1][0]):
-                        if ea.is_leader(g) and ea.me not in cut:
+                        if ea.is_leader(g) and ea.me not in cut(t):
                             ea.propose(g, b"t%d-g%d" % (t, g)).add_done_callback(_retrieve)
                             eb.propose(g, b"t%d-g%d" % (t, g)).add_done_callback(_retrieve)
                             break
-        applied = [f.applied for f in sides[0][1]]
-        if applied != [f.applied for f in sides[1][1]] or not applied[0]:
+        fsms = [f.applied for f in sides[0][1]], [f.applied for f in sides[1][1]]
+        if fsms[0] != fsms[1] or not fsms[0][0]:
             raise AssertionError("engine parity: group 0's FSMs differ or applied nothing")
-        if not fixups:
-            raise AssertionError("engine parity: no capped catch-up re-rooted a send pointer")
-        leaders = sum(int((e._h_role == 2).sum()) for e in sides[0][0])
-        print(f"engine parity ok: P={P}, 3 engines on the card == 3 on the CPU for 70 "
-              f"ticks (40 single, 30 adaptive window 4, engine 2 cut for 10): {sent} "
-              f"outbound messages byte-equal, every mirror and state leaf equal; "
-              f"{len(applied[0])} blocks applied on group 0, {leaders} leaders, "
-              f"send-pointer fixups on {fixups} engine-ticks, no host wait in any "
-              f"card tick_begin", flush=True)
+        return sides[0][0], fsms[0], sent
 
-    asyncio.run(run())
+    return asyncio.run(run())
+
+
+def engine_parity(dev, P: int = 512) -> None:
+    """Phase 5a: the twin clusters (:func:`_twin_run`) with dense IO, 40
+    single ticks then 30 adaptive window-4 ticks, engine 2 cut off for ticks
+    45-54. AppendEntries carry at most 2 blocks, so the partitioned engine
+    catches up through capped frames and send-pointer fixups."""
+    fixups = [0]
+
+    def count_fixups(t, engines):
+        fixups[0] += sum(bool(e._nxt_fixups) for e in engines)
+
+    card, applied, sent = _twin_run(
+        dev, P, 70, seed=11, window=lambda t: 1 if t < 40 else 4,
+        cut=lambda t: (2,) if 45 <= t < 55 else (), on_tick=count_fixups,
+        max_append_entries=2)
+    if not fixups[0]:
+        raise AssertionError("engine parity: no capped catch-up re-rooted a send pointer")
+    leaders = sum(int((e._h_role == 2).sum()) for e in card)
+    print(f"engine parity ok: P={P}, 3 engines on the card == 3 on the CPU for 70 "
+          f"ticks (40 single, 30 adaptive window 4, engine 2 cut for 10): {sent} "
+          f"outbound messages byte-equal, every mirror and state leaf equal; "
+          f"{len(applied[0])} blocks applied on group 0, {leaders} leaders, "
+          f"send-pointer fixups on {fixups[0]} engine-ticks, no host wait in any "
+          f"card tick_begin", flush=True)
 
 
 def upload_no_wait(dev, card: str, P: int = 4096) -> None:
@@ -323,35 +388,94 @@ def _retrieve(fut):
     fut.cancelled() or fut.exception()
 
 
-def engine_bench(card: str) -> dict:
-    """Phase 5b: the engine path at full size on the card, with its gates."""
+def engine_parity_scale(dev, P: int = 8192, ticks: int = 110) -> None:
+    """Phase 6a: the twin clusters (:func:`_twin_run`) at the sparse-IO
+    scale, single ticks, once with sparse IO and once with sparse IO plus
+    the active set. Every engine's compaction capacity starts at 64, so the
+    cold-start election burst overflows it and it regrows x8 up to P."""
+    for active in (False, True):
+        k_out = []
+
+        def track(t, engines):
+            if t == 0:  # the capacity each engine started this run with
+                k_out.append([64] * len(engines))
+            k_out.append([e._k_out for e in engines])
+
+        def small_capacity(e):
+            e._k_out = 64
+
+        t0 = time.perf_counter()
+        card, applied, sent = _twin_run(dev, P, ticks, seed=13, on_tick=track,
+                                        sparse_io=True, active_set=active,
+                                        setup=small_capacity)
+        seconds = time.perf_counter() - t0
+        steps = list(zip(k_out, k_out[1:]))
+        overflows = sum(b > a for ka, kb in steps for a, b in zip(ka, kb))
+        shrinks = sum(b < a for ka, kb in steps for a, b in zip(ka, kb))
+        if not overflows:
+            raise AssertionError("scale parity: the compaction capacity never overflowed")
+        leaders = sum(int((e._h_role == 2).sum()) for e in card)
+        what = "sparse IO + active set" if active else "sparse IO"
+        line = (f"scale parity ok ({what}): P={P}, 3 engines on the card == 3 on the CPU "
+                f"for {ticks} ticks: {sent} outbound messages byte-equal, every mirror, "
+                f"state leaf and scheduler count equal; {len(applied[0])} blocks applied "
+                f"on group 0, {leaders} leaders; capacity 64 -> {[e._k_out for e in card]}, "
+                f"{overflows} overflow and {shrinks} shrink engine-ticks")
+        if active:
+            compacted = sum(e.active_sched_ticks for e in card)
+            fallback = sum(e.active_fallback_ticks for e in card)
+            refetches = sum(e.active_refetches for e in card)
+            if not (compacted and fallback and refetches):
+                raise AssertionError(f"scale parity: compacted {compacted}, fallback "
+                                     f"{fallback}, refetches {refetches}")
+            line += (f"; {compacted} compacted and {fallback} fallback engine-ticks, "
+                     f"{refetches} refetches (the only host waits in any card tick_begin)")
+        else:
+            line += "; no host wait in any card tick_begin"
+        print(f"{line}; {seconds:.1f} s", flush=True)
+
+
+def engine_bench(card: str, P: int = 4096, **kw) -> dict:
+    """Phases 5b, 6b and 6c: the engine path at full size on the card
+    (``bench_engine.run``; ``kw`` picks the active set), with its gates."""
     from josefine_tpu_torch import bench_engine
     from josefine_tpu_torch.ops import fused_step
 
     launches0 = fused_step.launches
-    row = bench_engine.run(P=4096, warmup=40, ticks=20)
+    row = bench_engine.run(P=P, warmup=40, ticks=20, **kw)
     print(json.dumps(row), flush=True)
     if row["leaders_per_group"] != {"min": 1, "max": 1}:
         raise AssertionError(f"engine path: leaders per group {row['leaders_per_group']}")
     if row["committed_blocks"] <= 0:
         raise AssertionError("engine path: no block committed in the timed rounds")
+    mode = ("sparse IO" if row["sparse_io"] else "dense IO") + (
+        f" + active set at {row['active_frac']}" if row["active_set"] else "")
     lat = row["commit_latency_ticks"]
     phases = ", ".join(f"{k} {v['ms_per_round']:.3f}"
                        for k, v in row["profile_phases"].items())
-    print(f"engine path: P={row['P']} x 3 engines, {row['ms_per_tick']:.3f} ms/tick, "
+    print(f"engine path ({mode}): P={row['P']} x 3 engines, {row['proposals_per_tick']} "
+          f"proposals per round, {row['ms_per_tick']:.3f} ms/tick, "
           f"{row['committed_blocks_per_sec']:.6g} committed blocks/s, commit latency "
           f"p50 {lat['p50']} p99 {lat['p99']} ticks (n {lat['n']}); host ms per round "
-          f"(3 engines): {phases}; hand-kernel launches "
+          f"(3 engines): {phases}; init {row['init_s']:.2f} s; hand-kernel launches "
           f"{fused_step.launches - launches0} [{card}]", flush=True)
     busy = row["device_busy"]
-    print(f"engine path, card over {busy['rounds']} rounds: {busy['busy_ms']:.3f} ms busy of "
-          f"{busy['wall_ms']:.3f} ms, idle share {busy['idle_share']:.3f} [{card}]", flush=True)
+    print(f"engine path ({mode}), card over {busy['rounds']} rounds: {busy['busy_ms']:.3f} ms "
+          f"busy of {busy['wall_ms']:.3f} ms, idle share {busy['idle_share']:.3f} [{card}]",
+          flush=True)
     for w, s in row["window_step"].items():
         print(f"engine window step ({w} tick{'s' if w != '1' else ''}, one engine, "
-              f"P={row['P']}): {s['events_ms']:.3f} ms by CUDA events, {s['kernels']} "
-              f"device kernels and copies, {s['launch_calls']} cudaLaunchKernel calls, "
-              f"{s['busy_ms']:.3f} ms of kernel time; most launched: {s['top']} [{card}]",
-              flush=True)
+              f"P={row['P']}, {s['step']}): {s['events_ms']:.3f} ms by CUDA events, "
+              f"{s['kernels']} device kernels and copies, {s['launch_calls']} "
+              f"cudaLaunchKernel calls, {s['busy_ms']:.3f} ms of kernel time; most "
+              f"launched: {s['top']} [{card}]", flush=True)
+    if row["active_set"]:
+        print(f"engine path ({mode}), scheduler over the timed rounds: "
+              f"{json.dumps(row['active_set_stats'])}; capacity history "
+              f"{row['k_out_history']} [{card}]", flush=True)
+    elif row["sparse_io"]:
+        print(f"engine path ({mode}), capacity history [round, k_out] per engine: "
+              f"{row['k_out_history']} [{card}]", flush=True)
     return row
 
 
@@ -570,6 +694,11 @@ def main() -> int:
     upload_no_wait(dev, card)
     engine_parity(dev)
     engine_bench(card)
+
+    # ---- 6. the engine's scale path: sparse IO and the active set ----
+    engine_parity_scale(dev)
+    engine_bench(card, P=100_000)
+    engine_bench(card, P=100_000, active_set=True, active_frac=0.01)
 
     print(json.dumps({"kernels": [{
         "name": "fused_window",

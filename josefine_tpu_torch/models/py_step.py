@@ -338,6 +338,28 @@ def py_decay_idle(st: PyNode, ticks: int, hb_ticks: int,
     return st
 
 
+def decay_idle_np(hb_ticks: int, state, peer_fresh, ticks: int):
+    """``chained_raft.decay_idle`` over a NodeState of numpy leaves (the
+    JAX package's ``decay_idle(..., xp=np)``, the python backend's decay).
+    Returns a NodeState whose elapsed/hb_elapsed are new arrays; the other
+    leaves are the input's."""
+    N = state.votes.shape[-1]
+    is_leader = state.role == LEADER
+    if peer_fresh is None:
+        ka = np.zeros(state.role.shape, bool)
+    else:
+        lead = np.clip(state.leader, 0, N - 1)
+        ka = ((state.leader >= 0) & (np.asarray(peer_fresh)[lead] != 0)
+              & (state.hb_elapsed < hb_ticks * 8))
+    elapsed = np.where(is_leader | ka, 0, state.elapsed + ticks)
+    hb = state.hb_elapsed + ticks
+    alive = state.alive
+    return state.replace(
+        elapsed=np.where(alive, elapsed, state.elapsed).astype(state.elapsed.dtype),
+        hb_elapsed=np.where(alive, hb, state.hb_elapsed).astype(state.hb_elapsed.dtype),
+    )
+
+
 # --------------------------------------------------------------- clusters
 
 
@@ -428,7 +450,7 @@ def py_node_over_groups(params, member, me, state, inbox, prop_counts,
     rows of all P groups, executed by the scalar engine. Used by
     ``RaftEngine(backend="python")``. Inputs may be tensors (on any device)
     or numpy arrays; the result's tensors are built on the device of
-    ``state``."""
+    ``state`` (the CPU for numpy leaves)."""
     from josefine_tpu_torch.models.types import Metrics, Msgs, NodeState
     from josefine_tpu_torch.ops import ids
 
@@ -503,7 +525,7 @@ def py_node_over_groups(params, member, me, state, inbox, prop_counts,
         m_acc_b[g] = met.accepted_blocks; m_acc_m[g] = met.accepted_msgs
         m_delta[g] = met.commit_delta
 
-    dev = state.term.device
+    dev = state.term.device if isinstance(state.term, torch.Tensor) else "cpu"
     j = lambda a: torch.as_tensor(a, device=dev)
     new_state = NodeState(
         term=j(s_term), voted_for=j(s_voted), role=j(s_role),

@@ -16,10 +16,12 @@ row of the (partitions x nodes) tensor that lives on this host). Per tick it:
 
 The role machine itself runs on the device; the host moves payloads and
 durability. This is the port of the JAX package's ``raft/engine.py`` with
-dense packed IO. Backends: ``"torch"`` (the batched torch step, on
+dense and sparse packed IO (sparse by default above 4096 groups) and the
+active-set scheduler. Backends: ``"torch"`` (the batched torch step, on
 ``device``) and ``"python"`` (the scalar oracle). Options whose machinery
-is not ported yet raise ``NotImplementedError`` naming the ROADMAP item
-that brings them; nothing silently runs another path.
+is not ported yet (a device mesh, leases, the route fabric) raise
+``NotImplementedError`` naming the ROADMAP item that brings them; nothing
+silently runs another path.
 
 Invariant: an AppendEntries only reaches the device if its payload span was
 validated against its (x, y] claim (rpc.span_is_valid), so "device accepted"
@@ -28,13 +30,18 @@ always implies "host can extend the chain".
 Device discipline: ``tick_begin`` never waits for the device. It uploads
 the packed inbox without a host sync, enqueues the window step, and starts
 one asynchronous copy of the flat output into pinned host memory;
-``tick_fetch`` waits for that copy alone. State leaves are never written in
-place (an in-flight pipelined finish may still read them): every row write
-builds a new leaf.
+``tick_fetch`` waits for that copy alone. The one exception is the
+active-set scheduler's refetch of five (P,) vectors on re-entry after a
+dense/sparse fallback tick (``_refetch_wake_inputs``, counted in
+``active_refetches``). A sparse tick whose changed rows overflow the
+compaction capacity fetches the dense outputs in ``tick_finish``. State
+leaves are never written in place (an in-flight pipelined finish may still
+read them): every row write builds a new leaf.
 
 The engine is split across five modules, all state living on this class:
 
-* ``raft/packed_step.py``: the packed dense window step (two backends);
+* ``raft/packed_step.py``: the dense, sparse and active-set window steps
+  (two backends each);
 * ``raft/snap_transfer.py``: snapshot capture, chunked transfer, install
   (:class:`SnapshotTransfer` mixin);
 * ``raft/group_admin.py``: membership mask, group lifecycle, vote parole,
@@ -77,9 +84,21 @@ from josefine_tpu_torch.raft.hostio import HostIO, host_to
 from josefine_tpu_torch.raft.membership import ConfChange, MemberTable, is_conf
 from josefine_tpu_torch.raft.migration import is_migration_fence
 from josefine_tpu_torch.raft.packed_step import (
+    _MIRROR13_ROWS,
+    _active_window_fn,
+    _decay_only_fn,
+    _decay_scatter_fn,
+    _gather_active,
     _node_view,
+    _py_active_window,
+    _py_decay_scatter,
+    _py_gather_active,
     _py_packed_window,
+    _py_sparse_window,
+    _sparse_window_fn,
     _window_step_fn,
+    active_bucket,
+    host_wake_mask,
 )
 from josefine_tpu_torch.raft.result import NotLeader, TickResult
 from josefine_tpu_torch.raft.snap_transfer import SnapshotTransfer, _SnapStream
@@ -124,6 +143,20 @@ _m_phase_ms = REGISTRY.gauge(
     "raft_tick_phase_ms_total",
     "Cumulative wall ms per tick phase (PhaseProfiler; empty unless "
     "enable_profiling)")
+_m_wake_frac = REGISTRY.gauge(
+    "raft_active_wake_fraction",
+    "Fraction of groups the active-set wake predicate selected last tick")
+_m_bucket = REGISTRY.gauge(
+    "raft_active_bucket_level",
+    "Power-of-two active-set gather bucket size of the last compacted tick")
+_m_sched_ticks = REGISTRY.gauge(
+    "raft_active_sched_ticks_total", "Ticks run through the compacted path")
+_m_fallback_ticks = REGISTRY.gauge(
+    "raft_active_fallback_ticks_total",
+    "Active-set ticks that fell back to the dense dispatch")
+_m_sched_rows = REGISTRY.gauge(
+    "raft_active_sched_rows_total",
+    "Summed active rows over all compacted ticks")
 _m_pipe_depth = REGISTRY.gauge(
     "raft_pipeline_depth",
     "In-flight pipelined dispatches (0 = quiesced, 1 = double-buffered)")
@@ -131,6 +164,9 @@ _m_inbox_backlog = REGISTRY.gauge(
     "raft_inbox_backlog",
     "Wire messages + batch entries + deferred host messages queued for the "
     "next tick")
+_m_kout = REGISTRY.gauge(
+    "raft_sparse_outbox_capacity",
+    "Current sparse outbox compaction capacity (k_out)")
 _m_flight_seq = REGISTRY.gauge(
     "raft_flight_events_total",
     "Consensus flight-recorder events emitted (monotone past ring eviction)")
@@ -181,14 +217,6 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
     ):
         if backend not in ("torch", "python"):
             raise ValueError(f"unknown engine backend {backend!r}")
-        if sparse_io is None:
-            sparse_io = groups > _DENSE_MAX_GROUPS
-        if sparse_io:
-            raise _not_ported(
-                f"sparse packed IO (selected by default above {_DENSE_MAX_GROUPS} "
-                "groups)", "item 5, sparse")
-        if active_set:
-            raise _not_ported("the active-set scheduler", "item 5, active-set")
         if mesh is not None:
             raise _not_ported("sharding the engine over a device mesh", "item 10")
         if leases:
@@ -370,15 +398,68 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # from a recycled row's previous life must never be applied to its
         # successor.
         self._h_ginc = np.zeros(groups, np.int64)
-        # Host timer mirrors: elapsed/hb_elapsed are kept in lockstep with
-        # the out-of-tick device writes (parole hold, group reset); timeout
-        # and alive are startup snapshots, read in ONE transfer.
+
+        # Sparse packed IO (see the sparse commentary in packed_step.py):
+        # on by default for large P, where dense per-tick transfers are
+        # megabytes of zeros.
+        self._sparse = (groups > _DENSE_MAX_GROUPS) if sparse_io is None else bool(sparse_io)
+        # Active-set stepping (see the packed_step.py active-set
+        # commentary): per tick the host proves which rows can change this
+        # window (host_wake_mask over the mirrors below plus pending IO /
+        # force-woken rows), gathers exactly those into a power-of-two
+        # bucket, steps the bucket through the same window step as the
+        # dense path, and advances every quiescent row through the
+        # closed-form decay. Off by default.
+        self._active_set = bool(active_set)
+        # Auto-fallback: when the scheduler wakes more than this fraction
+        # of rows, run the plain dense/sparse dispatch for the tick (timer
+        # mirrors refetch on re-entry).
+        self.active_fallback_frac = 0.5
+        # Rows that MUST be stepped next tick regardless of the wake
+        # predicate: reset/recycled rows, snapshot installs, send-pointer
+        # fixups, claim changes — every out-of-tick device-state mutation
+        # site registers itself here.
+        self._force_active: set[int] = set()
+        # Active sets dispatched but not yet adopted by tick_finish
+        # (tick_pipelined schedules tick t+1 before tick t's finish runs,
+        # so those rows' mirrors are stale — forcing them active keeps the
+        # wake predicate sound on mirrors one tick behind).
+        self._sched_pending: list[np.ndarray] = []
+        # True after a dense/sparse tick ran while active_set is on: the
+        # timer mirrors below were not maintained and must be refetched
+        # before the next active schedule.
+        self._timers_stale = False
+        # Host timer mirrors (the wake predicate's inputs): exact for every
+        # quiescent row by construction (the host decay arithmetic IS the
+        # device decay), refreshed for active rows from the compact step's
+        # 13-row mirror fetch, and kept in lockstep with the out-of-tick
+        # device writes (parole hold, group reset). timeout and alive start
+        # as one transfer; alive never moves on the engine path.
         self._h_elapsed = np.zeros(groups, np.int32)
         self._h_hb = np.zeros(groups, np.int32)
         timers = torch.stack([self.state.timeout,
                               self.state.alive.to(torch.int32)]).cpu().numpy()
         self._h_timeout = timers[0].astype(np.int32)
         self._h_alive = timers[1].astype(bool)
+        self._wake_role, self._wake_leader = self._h_role, self._h_leader
+        # Scheduler observability (read by bench_engine's active-set rows):
+        # ticks run compacted vs through the dense fallback, the summed
+        # active-row count, and the timer refetches (the one host wait a
+        # tick_begin may make).
+        self.active_sched_ticks = 0
+        self.active_sched_rows = 0
+        self.active_fallback_ticks = 0
+        self.active_refetches = 0
+        self._last_wake_rows = 0
+        self._last_bucket_k = 0
+        self._sched_mode: str | None = None
+        # Adaptive outbox-compaction capacity: grows x8 on overflow and
+        # shrinks a level after 64 quiet ticks. The fetch each tick is the
+        # FULL capacity buffer, so without the shrink one cold-start
+        # election burst would leave every idle tick fetching a burst-sized
+        # buffer.
+        self._k_out = min(4096, groups)
+        self._k_out_quiet = 0  # consecutive ticks with total << capacity
         # Per-src transport liveness: tick of the last frame (of any kind,
         # including MSG_PING) received from each slot. Drives peer_fresh —
         # the aggregate keepalive that lets leaders stagger per-group
@@ -492,7 +573,15 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         _m_inbox_backlog.set(
             len(self._pending_msgs) + len(self._deferred_host)
             + sum(len(b) for b in self._pending_batches), node=node)
+        _m_kout.set(self._k_out, node=node)
         _m_flight_seq.set(self.flight.seq, node=node)
+        if self._active_set:
+            _m_wake_frac.set(
+                round(self._last_wake_rows / max(1, self.P), 6), node=node)
+            _m_bucket.set(self._last_bucket_k, node=node)
+            _m_sched_ticks.set(self.active_sched_ticks, node=node)
+            _m_fallback_ticks.set(self.active_fallback_ticks, node=node)
+            _m_sched_rows.set(self.active_sched_rows, node=node)
         if self.profiler.enabled:
             for phase, s in self.profiler.snapshot().items():
                 _m_phase_ms.set(s["total_ms"], node=node, phase=phase)
@@ -752,6 +841,148 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         fresh[self.me] = False
         return fresh.astype(np.int32)
 
+    # ------------------------------------------------- active-set scheduler
+
+    def _schedule_active(self, window: int, pf: np.ndarray) -> np.ndarray | None:
+        """Partition this tick's groups: returns the sorted active-set ids
+        (rows a ``window``-tick dispatch could change beyond decay), or
+        None to fall back to the dense/sparse dispatch (active fraction
+        above ``active_fallback_frac``). Pure host work — no device wait
+        except the one-off refetch after a fallback run.
+
+        The set is the union of the predicate family:
+
+        * :func:`packed_step.host_wake_mask` over the host mirrors —
+          election-timer and heartbeat horizons, candidates, leaderless
+          member rows;
+        * host-known IO: pending wire messages/batches, queued proposals;
+        * force-woken rows (reset/recycle, snapshot install, nxt fixups,
+          claim changes — ``_force_active``);
+        * rows dispatched but not yet adopted (``_sched_pending``): under
+          tick_pipelined the next begin runs before the previous finish,
+          so those rows' mirrors are one tick stale — keeping them active
+          makes the staleness harmless (their fresh state is on device).
+        """
+        role, leader = self._h_role, self._h_leader
+        if self._timers_stale:
+            role, leader = self._refetch_wake_inputs()
+            self._timers_stale = False
+        # _decay_mirrors must advance the quiescent timers with the same
+        # role/leader view the device decay sees (post-step on a fallback
+        # re-entry tick), not the possibly-stale mirrors.
+        self._wake_role, self._wake_leader = role, leader
+        wake = host_wake_mask(
+            self._hb_ticks, role, leader,
+            self._h_elapsed, self._h_timeout, self._h_hb, self._h_alive,
+            self._mask_np[:, self.me], pf, window)
+        for b in self._pending_batches:
+            wake[b.group] = True
+        if self._pending_msgs:
+            wake[np.fromiter((m.group for m in self._pending_msgs),
+                             np.intp, len(self._pending_msgs))] = True
+        if self._prop_groups:
+            wake[np.fromiter(self._prop_groups, np.intp,
+                             len(self._prop_groups))] = True
+        if self._force_active:
+            fa = [g for g in self._force_active if 0 <= g < self.P]
+            if fa:
+                wake[fa] = True
+            # Cleared even on fallback below: the dense step covers every
+            # row, which is exactly what a force-wake asks for.
+            self._force_active.clear()
+        for gp in self._sched_pending:
+            wake[gp] = True
+        G = np.nonzero(wake)[0]
+        self._last_wake_rows = len(G)  # scrape-time wake-fraction gauge
+        if len(G) > self.active_fallback_frac * self.P:
+            return None
+        return G
+
+    def _refetch_wake_inputs(self) -> tuple[np.ndarray, np.ndarray]:
+        """Re-entering active mode after a dense/sparse fallback tick: those
+        steps return no timers, so read elapsed/timeout/hb_elapsed into the
+        timer mirrors, and role/leader as LOCALS, in one transfer of five
+        (P,) vectors. This is the one place ``tick_begin`` waits for the
+        device (mode transitions only, never steady state).
+
+        Role/leader never go into the mirrors: under tick_pipelined this
+        begin runs BEFORE the fallback tick's finish, whose mirror diff
+        (lost_leadership, NotLeader waiter drops) needs the pre-step
+        baseline, while the predicate needs the post-step values (a
+        follower that reached candidacy during the dense tick must not read
+        as a quiescent follower). tick_finish never diffs the timer
+        mirrors, so overwriting them is safe even with that finish
+        pending."""
+        st = self.state
+        v = torch.stack([st.elapsed, st.timeout, st.hb_elapsed, st.role,
+                         st.leader]).cpu().numpy()
+        self.active_refetches += 1
+        self._h_elapsed = v[0].copy()
+        self._h_timeout = v[1].copy()
+        self._h_hb = v[2].copy()
+        return v[3].astype(np.int64), v[4].astype(np.int64)
+
+    def _step_active(self, G: np.ndarray, k: int, vals: np.ndarray,
+                     pf: np.ndarray, window: int, prof):
+        """Gather the active rows into the bucket, run the compact window
+        step, and scatter back fused with the quiescent decay. Returns (new
+        full state, flat output or None, upload bytes, fetch bytes)."""
+        A = len(G)
+        dev = self._device
+        python = self._backend == "python"
+        if A == 0:
+            # All-quiescent tick: decay IS the device step; nothing to
+            # gather, step, or fetch.
+            with prof.phase("dispatch"):
+                if python:
+                    new_state = _py_decay_scatter(self.params, self.state, pf,
+                                                  None, None, window)
+                else:
+                    new_state = _decay_only_fn(window)(
+                        self.params, self.state, host_to(pf, dev))
+            return new_state, None, 0, 0
+        idx = np.full(k, self.P, np.int64)
+        idx[:A] = G
+        if python:
+            with prof.phase("compact"):
+                state_c, member_c = _py_gather_active(self.state, self.member, idx)
+            with prof.phase("dispatch"):
+                new_rows, flat = _py_active_window(
+                    self.params, member_c, self._me_dev, state_c, vals, pf,
+                    window)
+            with prof.phase("scatter"):
+                new_state = _py_decay_scatter(
+                    self.params, self.state, pf, idx, new_rows, window)
+        else:
+            idx_dev, pf_dev = host_to(idx, dev), host_to(pf, dev)
+            with prof.phase("compact"):
+                state_c, member_c = _gather_active(self.state, self.member, idx_dev)
+            with prof.phase("dispatch"):
+                new_rows, flat = _active_window_fn(window)(
+                    self.params, member_c, self._me_dev, state_c,
+                    host_to(vals, dev), pf_dev)
+            with prof.phase("scatter"):
+                new_state = _decay_scatter_fn(window)(
+                    self.params, self.state, pf_dev, idx_dev, new_rows)
+        return new_state, flat, int(idx.nbytes + vals.nbytes), flat.numel() * 4
+
+    def _decay_mirrors(self, G: np.ndarray, window: int, pf: np.ndarray) -> None:
+        """Host twin of the device decay, applied to the QUIESCENT rows'
+        timer mirrors (active rows adopt theirs from the 13-row mirror
+        fetch in tick_finish). Same integer arithmetic as
+        ``chained_raft.decay_idle``, so the mirrors stay bit-exact. Reads
+        the role/leader view _schedule_active just used (post-step locals
+        on a fallback re-entry tick, the mirrors otherwise)."""
+        role, leader = self._wake_role, self._wake_leader
+        quiet = self._h_alive.copy()
+        quiet[G] = False
+        lead = np.clip(leader, 0, self.N - 1).astype(np.intp)
+        hb8 = self._hb_ticks * 8
+        ka = (leader >= 0) & (pf[lead] != 0) & (self._h_hb < hb8)
+        new_e = np.where((role == LEADER) | ka, 0, self._h_elapsed + window)
+        self._h_elapsed[quiet] = new_e[quiet].astype(np.int32)
+        self._h_hb[quiet] += window
+
     def tick_begin(self, window: int = 1) -> dict:
         """Dispatch one tick's device step WITHOUT waiting for its results.
 
@@ -807,42 +1038,101 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             # before the step reads state.nxt (see _drain_nxt_fixups).
             self._drain_nxt_fixups()
         pf = self._peer_fresh(window)
-        with prof.phase("inbox"):
-            in10, staged, deferred, deferred_b = self._build_inbox()
-        with prof.phase("stage"):
-            if self._prop_groups:
-                prop_groups = list(self._prop_groups)
-                pg = np.asarray(prop_groups, np.intp)
-                self._scatter_proposal_counts(in10[9], pg, prop_groups)
-            if self._flight_wire:
-                # Same occupancy pass, nonzero form: the stamp AND the
-                # delivered trace come from one scan.
-                gi, si = np.nonzero(in10[0])
-                self._h_last_seen[gi, si] = self._ticks
-                if len(gi):
-                    self.flight.emit_many(
-                        self._wire_tick, "msg_delivered", gi,
-                        in10[1][gi, si], in10[0][gi, si],
-                        si, self.me, "host")
+        python = self._backend == "python"
+        G = None
+        if self._active_set:
+            # "compact" is entered twice per compacted tick: the predicate
+            # here and the gather in _step_active.
+            with prof.phase("compact"):
+                G = self._schedule_active(window, pf)
+            if G is None:
+                # Auto-fallback: the active fraction exceeds the threshold,
+                # so run the plain dispatch below. It returns no timers, so
+                # the mirrors go stale until the next active tick refetches.
+                self._timers_stale = True
+                self.active_fallback_ticks += 1
             else:
-                self._h_last_seen[in10[0] != rpc.MSG_NONE] = self._ticks
+                self.active_sched_ticks += 1
+                self.active_sched_rows += len(G)
+            # Journal compacted<->dense transitions (not every tick).
+            mode = "dense_fallback" if G is None else "compacted"
+            if mode != self._sched_mode:
+                if self._sched_mode is not None:
+                    self.flight.emit(self._ticks, "active_mode_flip",
+                                     from_mode=self._sched_mode, to_mode=mode,
+                                     wake_rows=self._last_wake_rows)
+                self._sched_mode = mode
+        if G is not None:
+            k = active_bucket(len(G), self.P)
+            self._last_bucket_k = k
+            with prof.phase("inbox"):
+                # Compact-domain inbox: rows line up with the gathered
+                # state rows (G is a superset of every pending group).
+                vals, staged, deferred, deferred_b = self._build_inbox_active(G, k)
+            new_state, flat, upload, fetchb = self._step_active(
+                G, k, vals, pf, window, prof)
+            with prof.phase("decay"):
+                self._decay_mirrors(G, window, pf)
+            h = {"mode": "active", "G": G, "k": k, "upload_bytes": upload,
+                 "fetch_bytes": fetchb}
+            self._sched_pending.append(G)
+        elif self._sparse:
+            with prof.phase("inbox"):
+                # Proposal staging (sparse row 9) happens in _pack_inbox_rows.
+                idx, vals, staged, deferred, deferred_b = self._build_inbox_sparse()
+            with prof.phase("dispatch"):
+                if python:
+                    new_state, flat, sv, ov = _py_sparse_window(
+                        self._k_out, self.params, self.member, self._me_dev,
+                        self.state, pf, idx, vals, ticks=window)
+                else:
+                    new_state, flat, sv, ov = _sparse_window_fn(self._k_out, window)(
+                        self.params, self.member, self._me_dev, self.state,
+                        host_to(pf, dev), host_to(idx, dev), host_to(vals, dev))
+            # sv/ov stay on the device; tick_finish fetches them only on a
+            # compaction overflow.
+            h = {"mode": "sparse", "sv": sv, "ov": ov, "k_out": self._k_out,
+                 "upload_bytes": int(idx.nbytes + vals.nbytes),
+                 "fetch_bytes": flat.numel() * 4}
+        else:
+            with prof.phase("inbox"):
+                in10, staged, deferred, deferred_b = self._build_inbox()
+            with prof.phase("stage"):
+                if self._prop_groups:
+                    prop_groups = list(self._prop_groups)
+                    pg = np.asarray(prop_groups, np.intp)
+                    self._scatter_proposal_counts(in10[9], pg, prop_groups)
+                if self._flight_wire:
+                    # Same occupancy pass, nonzero form: the stamp AND the
+                    # delivered trace come from one scan.
+                    gi, si = np.nonzero(in10[0])
+                    self._h_last_seen[gi, si] = self._ticks
+                    if len(gi):
+                        self.flight.emit_many(
+                            self._wire_tick, "msg_delivered", gi,
+                            in10[1][gi, si], in10[0][gi, si],
+                            si, self.me, "host")
+                else:
+                    self._h_last_seen[in10[0] != rpc.MSG_NONE] = self._ticks
+            with prof.phase("dispatch"):
+                if python:
+                    new_state, flat = _py_packed_window(
+                        self.params, self.member, self._me_dev, self.state,
+                        in10, pf, ticks=window)
+                else:
+                    new_state, flat = _window_step_fn(window)(
+                        self.params, self.member, self._me_dev, self.state,
+                        host_to(in10, dev), host_to(pf, dev))
+            h = {"mode": "dense", "upload_bytes": int(in10.nbytes),
+                 "fetch_bytes": flat.numel() * 4}
         ready = None
-        with prof.phase("dispatch"):
-            if self._backend == "python":
-                new_state, flat = _py_packed_window(
-                    self.params, self.member, self._me_dev, self.state,
-                    in10, pf, ticks=window)
-            else:
-                new_state, flat = _window_step_fn(window)(
-                    self.params, self.member, self._me_dev, self.state,
-                    host_to(in10, dev), host_to(pf, dev))
-            if flat.is_cuda:
-                # The tick's one device->host copy, started now into pinned
-                # memory; tick_fetch waits for it alone.
-                flat = flat.to("cpu", non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record()
-        h = {"flat": flat, "ready": ready, "staged": staged, "window": window}
+        if flat is not None and flat.is_cuda:
+            # The tick's one device->host copy, started now into pinned
+            # memory; tick_fetch waits for it alone.
+            flat = flat.to("cpu", non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        h.update(flat=flat, ready=ready, staged=staged, window=window)
         self.state = new_state
         self._pending_msgs = deferred
         self._pending_batches = deferred_b
@@ -866,7 +1156,9 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                 ready = h.pop("ready")
                 if ready is not None:
                     ready.synchronize()
-                h["flat_np"] = h["flat"].numpy()
+                # flat is None on an all-quiescent active tick (nothing to
+                # fetch: the decay program is the whole device step).
+                h["flat_np"] = None if h["flat"] is None else h["flat"].numpy()
             self._tick_inflight = False
         return h
 
@@ -935,34 +1227,134 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # the next tick and must not be touched here.
         props = h["props"]
         prop_gs = set(props)
-        # ONE flat fetch holding the (10, P) scalar mirror and the
-        # (9, P, N) outbox.
-        flat = h["flat_np"]
-        cut = 10 * self.P
-        sv = flat[:cut].reshape(10, self.P).astype(np.int64, copy=False)
-        ov = flat[cut:].reshape(9, self.P, self.N)
-        (n_term, n_voted, n_role, n_leader,
-         n_head_t, n_head_s, n_commit_t, n_commit_s,
-         minted_a, became_a) = sv
-        head_all = (n_head_t << 32) | n_head_s
-        commit_all = (n_commit_t << 32) | n_commit_s
-        # Rows needing host work: any mirrored field moved (vote-only rows
-        # included — their durable vol record and mirrors must update),
-        # outbox traffic, and rows with queued proposals. ``proc`` holds
-        # their group ids and the v/ov_c arrays their fetched values,
-        # position-aligned.
-        active = (became_a != 0) | (minted_a != 0)
-        active |= head_all != self._h_head
-        active |= commit_all != self._h_commit
-        active |= n_role != self._h_role
-        active |= n_leader != self._h_leader
-        active |= (n_term != self._h_term) | (n_voted != self._h_voted)
-        active |= (ov[0] != rpc.MSG_NONE).any(axis=1)  # outbox traffic
-        if prop_gs:
-            active[list(prop_gs)] = True
-        proc = np.nonzero(active)[0].astype(np.int64)
-        v = sv[:, proc]
-        ov_c = ov[:, proc, :]
+        # Normalize every fetch mode to COMPACT row arrays: ``proc`` holds
+        # the group ids needing host work and the v/ov_c arrays their
+        # fetched values, position-aligned. Sparse mode never materializes
+        # dense (10, P)/(9, P, N) views.
+        if h["mode"] == "active":
+            # Compact fetch over the scheduled rows: the (13, A) mirror
+            # (the dense 10 plus elapsed/timeout/hb_elapsed, adopted into
+            # the host timer mirrors below) and the (9, A, N) outbox.
+            # ``proc`` IS the active set — sorted ascending, a superset of
+            # every row needing host work and of every proposal group.
+            proc = h["G"].astype(np.int64, copy=False)
+            A = len(proc)
+            if A:
+                flat = h["flat_np"]
+                cut = _MIRROR13_ROWS * h["k"]
+                sv13 = (flat[:cut].reshape(_MIRROR13_ROWS, h["k"])
+                        [:, :A].astype(np.int64))
+                ov_c = flat[cut:].reshape(9, h["k"], self.N)[:, :A, :]
+            else:
+                # All-quiescent tick: the decay program was the whole step.
+                sv13 = np.zeros((13, 0), np.int64)
+                ov_c = np.zeros((9, 0, self.N), np.int32)
+            v = sv13[:10]
+            dense = False
+        elif h["mode"] == "dense":
+            # ONE flat fetch holding the (10, P) scalar mirror and the
+            # (9, P, N) outbox.
+            flat = h["flat_np"]
+            cut = 10 * self.P
+            sv = flat[:cut].reshape(10, self.P).astype(np.int64, copy=False)
+            ov = flat[cut:].reshape(9, self.P, self.N)
+            dense = True
+        else:
+            flat = h["flat_np"]
+            k_out = h["k_out"]
+            total = int(flat[0])
+            C = 10 + 9 * self.N
+            if total > k_out:
+                # Compaction overflow (burst bigger than capacity):
+                # fetch the dense device-resident outputs — correct, just
+                # a bigger transfer — and grow the bucket.
+                with self.profiler.phase("fetch"):
+                    sv32 = h["sv"].cpu().numpy()
+                    ov = h["ov"].cpu().numpy()
+                # Counted at the int32 wire width, before the int64 cast.
+                sv = sv32.astype(np.int64, copy=False)
+                h["fetch_bytes"] += sv32.nbytes + ov.nbytes
+                dense = True
+                while self._k_out < min(self.P, total):
+                    self._k_out = min(self.P, self._k_out * 8)
+                self._k_out_quiet = 0
+                log.info("sparse outbox overflow (%d > %d); capacity now %d",
+                         total, k_out, self._k_out)
+            else:
+                rows_g = flat[1:1 + k_out][:total].astype(np.int64)
+                buf = flat[1 + k_out:].reshape(k_out, C)[:total]
+                dense = False
+                # Shrink hysteresis: 64 consecutive ticks fitting the next
+                # bucket down (with 2x headroom) drop one level; a burst
+                # right after just regrows via the overflow fetch. The
+                # target walks the SAME growth ladder (min(P, 4096 * 8^i)),
+                # so shrink/regrow cycles only revisit its sizes.
+                floor = min(4096, self.P)
+                if k_out > floor:
+                    target = floor
+                    while min(self.P, target * 8) < k_out:
+                        target = min(self.P, target * 8)
+                    if total * 2 <= target:
+                        self._k_out_quiet += 1
+                        if self._k_out_quiet >= 64:
+                            self._k_out = target
+                            self._k_out_quiet = 0
+                            log.info("sparse outbox quiet; capacity %d -> %d",
+                                     k_out, self._k_out)
+                    else:
+                        self._k_out_quiet = 0
+                else:
+                    self._k_out_quiet = 0
+
+        if h["mode"] == "active":
+            pass  # proc / v / ov_c already compact, computed above
+        elif dense:
+            (n_term, n_voted, n_role, n_leader,
+             n_head_t, n_head_s, n_commit_t, n_commit_s,
+             minted_a, became_a) = sv
+            head_all = (n_head_t << 32) | n_head_s
+            commit_all = (n_commit_t << 32) | n_commit_s
+            # Same predicate as the device-side sparse compaction: any
+            # mirrored field moved (vote-only rows included — their
+            # durable vol record and mirrors must update), outbox traffic,
+            # plus rows with queued proposals.
+            active = (became_a != 0) | (minted_a != 0)
+            active |= head_all != self._h_head
+            active |= commit_all != self._h_commit
+            active |= n_role != self._h_role
+            active |= n_leader != self._h_leader
+            active |= (n_term != self._h_term) | (n_voted != self._h_voted)
+            active |= (ov[0] != rpc.MSG_NONE).any(axis=1)  # outbox traffic
+            if prop_gs:
+                active[list(prop_gs)] = True
+            proc = np.nonzero(active)[0].astype(np.int64)
+            v = sv[:, proc]
+            ov_c = ov[:, proc, :]
+        else:
+            # Fetched rows ⊇ rows needing work; proposal groups the device
+            # left unchanged (no mint — we are not their leader) are
+            # appended with mirror values so their futures still fail fast.
+            fetched = set(rows_g.tolist())
+            extra = np.asarray(sorted(prop_gs - fetched), np.int64)
+            v = buf[:, :10].astype(np.int64).T           # (10, R)
+            ov_c = buf[:, 10:].reshape(total, 9, self.N).transpose(1, 0, 2)
+            proc = rows_g
+            if len(extra):
+                ev = np.stack([
+                    self._h_term[extra], self._h_voted[extra],
+                    self._h_role[extra], self._h_leader[extra],
+                    self._h_head[extra] >> 32,
+                    self._h_head[extra] & 0xFFFFFFFF,
+                    self._h_commit[extra] >> 32,
+                    self._h_commit[extra] & 0xFFFFFFFF,
+                    np.zeros(len(extra), np.int64),
+                    np.zeros(len(extra), np.int64),
+                ])
+                v = np.concatenate([v, ev], axis=1)
+                ov_c = np.concatenate(
+                    [ov_c, np.zeros((9, len(extra), self.N), ov_c.dtype)],
+                    axis=1)
+                proc = np.concatenate([proc, extra])
         (n_term, n_voted, n_role, n_leader,
          n_head_t, n_head_s, n_commit_t, n_commit_s, minted, became) = v
         head_new = (n_head_t << 32) | n_head_s
@@ -1226,6 +1618,19 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         self._h_voted[upd] = n_voted[keep]
         self._h_role[upd] = n_role_k
         self._h_leader[upd] = n_lead_k
+        if h["mode"] == "active":
+            # Timer-mirror adoption (rows 10..12 of the compact mirror).
+            # Skip rows keep their reset-site mirror values, exactly like
+            # the scalar mirrors above; quiescent rows were advanced by the
+            # host decay twin at tick_begin.
+            sv13k = sv13[:, keep]
+            self._h_elapsed[upd] = sv13k[10].astype(np.int32)
+            self._h_timeout[upd] = sv13k[11].astype(np.int32)
+            self._h_hb[upd] = sv13k[12].astype(np.int32)
+            # This dispatch's rows are adopted — the scheduler no longer
+            # needs to force them awake for mirror staleness.
+            self._sched_pending = [gp for gp in self._sched_pending
+                                   if gp is not h["G"]]
 
         if self._conf_notify:
             res.conf_changes.extend(self._conf_notify)

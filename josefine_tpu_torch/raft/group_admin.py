@@ -6,7 +6,7 @@ sets, group reset/recycle, conf-change application, and the vote-parole
 safety mechanism). The port of the JAX package's ``raft/group_admin.py``:
 the host logic is the same; the device-row writes build new leaves
 (:func:`set_row`) instead of writing the live state, and the route-fabric,
-payload-ring, lease and active-set hooks are not ported yet.
+payload-ring and lease hooks are not ported yet.
 
 The node-axis columns are pre-allocated slots a cluster can grow into
 (runtime ADD/REMOVE via replicated conf blocks), and the P axis hosts
@@ -101,6 +101,12 @@ class GroupAdmin:
         # Incremental: rewrite only row g of the host mask, re-upload.
         self._mask_np[g] = self._claim_row(g, self._active_vec())
         self.member = self._place_member(self._mask_np)
+        # A claim change moves quorum/membership for the row — wake it so
+        # the full step (not the decay closed form) sees the new mask.
+        # (Dense engines never drain _force_active, so only track it when
+        # the active-set scheduler is on.)
+        if self._active_set:
+            self._force_active.add(g)
 
     def group_members(self, g: int) -> frozenset[int] | None:
         return self._group_claims.get(g)
@@ -217,6 +223,8 @@ class GroupAdmin:
         # quiet rows, so it will NOT heal a mirror this site leaves stale.
         self._h_head[g] = ch.head
         self._h_commit[g] = ch.committed
+        if self._active_set:
+            self._force_active.add(g)
         snap_term = id_term(snap_id)
         if snap_term > int(self._h_term[g]):
             # term >= id_term(head) must hold or a later election won at a
@@ -405,9 +413,13 @@ class GroupAdmin:
         self._h_role[g] = 0
         self._h_leader[g] = -1
         # Timer mirrors follow the device-row demotion below (elapsed and
-        # hb_elapsed zeroed; timeout keeps its old draw).
+        # hb_elapsed zeroed; timeout keeps its old draw), and the recycled
+        # row is forced into the next active set — its next step must run
+        # through the full step under the new incarnation, not decay.
         self._h_elapsed[g] = 0
         self._h_hb[g] = 0
+        if self._active_set:
+            self._force_active.add(g)
         # Full device-row demotion, not just head/commit: a row that was
         # leading (or campaigning) before the reset must not keep its role,
         # ballot box, or progress rows — they describe state the chain no

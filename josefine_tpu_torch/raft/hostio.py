@@ -1,17 +1,19 @@
 """Host-side wire<->device packing for RaftEngine: inbox build, outbox decode.
 
 Mixin half of :class:`josefine_tpu_torch.raft.engine.RaftEngine` (state is
-initialized there). The inbox builder packs queued wire messages/columnar
-batches into the device step's packed (10, P, N) input contract; the outbox
+initialized there). The ``_build_inbox*`` methods pack queued wire
+messages/columnar batches into the device step's packed (10, P, N) input
+contract (dense), its touched-rows bucket (sparse) or the active set's
+compact rows; the outbox
 decoder turns the fetched packed outbox back into columnar per-peer
 MsgBatches, attaching chain payload spans to AppendEntries (with
 max_append_entries flow control) and snapshot messages where the span bottom
 fell below the truncation floor.
 
-The port of the JAX package's ``raft/hostio.py``, dense IO only (its sparse
-and active-set builders and the device-routing masks are not ported yet).
-The host code is the same; the one device write, the send-pointer fixup
-scatter, builds new tensors instead of writing the live state.
+The port of the JAX package's ``raft/hostio.py`` without the device-routing
+masks (ROADMAP Queue 1 item 7). The host code is the same; the one device
+write, the send-pointer fixup scatter, builds new tensors instead of
+writing the live state.
 
 Per-peer bounded send queue with carry-over: one message per (group, src)
 slot per tick; extras carry over to the next tick instead of being dropped.
@@ -115,9 +117,138 @@ class HostIO:
         in10[8, gi, si] = np.fromiter((m.ok for m in keep), np.int32, k)
         return in10, staged, deferred, deferred_b
 
+    def _build_inbox_sparse(self) -> tuple[
+            np.ndarray, np.ndarray, dict[int, list],
+            list[rpc.WireMsg], list[rpc.MsgBatch]]:
+        """Compact twin of :meth:`_build_inbox`: instead of filling a dense
+        (10, P, N) buffer, collect the touched groups (messages, batches,
+        proposal queues) into a sorted id vector and pack their rows into a
+        (10, K, N) bucket (K = the smallest power-of-8 step from 256 that
+        fits). Padding rows carry group id P — the device scatter sends them
+        to its dump row. Slot-conflict carry-over semantics are identical
+        to :meth:`_build_inbox`."""
+        parts = []
+        if self._pending_batches:
+            parts.extend(b.group.astype(np.int64)
+                         for b in self._pending_batches)
+        if self._pending_msgs:
+            parts.append(np.fromiter((m.group for m in self._pending_msgs),
+                                     np.int64, len(self._pending_msgs)))
+        prop_groups = list(self._prop_groups)
+        if prop_groups:
+            parts.append(np.asarray(prop_groups, np.int64))
+        G = (np.unique(np.concatenate(parts)) if parts
+             else np.empty(0, np.int64))
+        K = 256
+        while K < len(G):
+            K *= 8
+        K = min(K, self.P) if self.P >= 256 else self.P
+        if K < len(G):  # P < 256 and all groups touched
+            K = len(G)
+        idx = np.full(K, self.P, np.int32)
+        idx[:len(G)] = G
+        vals, staged, deferred, deferred_b = self._pack_inbox_rows(G, K)
+        return idx, vals, staged, deferred, deferred_b
+
+    def _build_inbox_active(self, G: np.ndarray, K: int) -> tuple[
+            np.ndarray, dict[int, list],
+            list[rpc.WireMsg], list[rpc.MsgBatch]]:
+        """Active-set twin of :meth:`_build_inbox_sparse`: the compact
+        domain is the scheduler's active set ``G`` (sorted global ids,
+        guaranteed a superset of every pending message/batch/proposal
+        group) padded to bucket ``K``, so the packed rows line up with the
+        gathered state rows."""
+        return self._pack_inbox_rows(G, K)
+
+    def _pack_inbox_rows(self, G: np.ndarray, K: int) -> tuple[
+            np.ndarray, dict[int, list],
+            list[rpc.WireMsg], list[rpc.MsgBatch]]:
+        """Shared compact inbox-packing core (sparse + active-set inboxes):
+        pack queued batches/messages into a (10, K, N) bucket at rows
+        ``searchsorted(G, group)`` (every pending group must be in ``G``),
+        update the per-(group, src) delivery stamps, and scatter proposal
+        counts into row 9. Slot-conflict carry-over semantics are identical
+        to :meth:`_build_inbox`."""
+        vals = np.zeros((10, K, self.N), np.int32)
+        staged: dict[int, list] = {}
+        deferred: list[rpc.WireMsg] = []
+        deferred_b: list[rpc.MsgBatch] = []
+        for b in self._pending_batches:
+            rows = np.searchsorted(G, b.group)
+            free = vals[0, rows, b.src] == 0
+            if not free.all():
+                deferred_b.append(b.take(~free))
+                b = b.take(free)
+                if not len(b):
+                    continue
+                rows = np.searchsorted(G, b.group)
+            vals[0, rows, b.src] = b.kind_col
+            vals[1, rows, b.src] = b.term
+            vals[2, rows, b.src] = b.x >> 32
+            vals[3, rows, b.src] = b.x & 0xFFFFFFFF
+            vals[4, rows, b.src] = b.y >> 32
+            vals[5, rows, b.src] = b.y & 0xFFFFFFFF
+            vals[6, rows, b.src] = b.z >> 32
+            vals[7, rows, b.src] = b.z & 0xFFFFFFFF
+            vals[8, rows, b.src] = b.ok
+            for grp, blks in b.blocks.items():
+                staged.setdefault(grp, []).extend(blks)
+        msgs = self._pending_msgs
+        if msgs:
+            keep: list[rpc.WireMsg] = []
+            seen: set[tuple[int, int]] = set()
+            rows_kept: list[int] = []
+            for m in msgs:
+                row = int(np.searchsorted(G, m.group))
+                key = (m.group, m.src)
+                if key in seen or vals[0, row, m.src] != rpc.MSG_NONE:
+                    deferred.append(m)
+                    continue
+                seen.add(key)
+                keep.append(m)
+                rows_kept.append(row)
+                if m.kind == rpc.MSG_APPEND and m.blocks:
+                    staged.setdefault(m.group, []).extend(m.blocks)
+            if keep:
+                k = len(keep)
+                gi = np.asarray(rows_kept, np.intp)
+                si = np.fromiter((m.src for m in keep), np.intp, k)
+                x = np.fromiter((m.x for m in keep), np.int64, k)
+                y = np.fromiter((m.y for m in keep), np.int64, k)
+                z = np.fromiter((m.z for m in keep), np.int64, k)
+                vals[0, gi, si] = np.fromiter((m.kind for m in keep), np.int32, k)
+                vals[1, gi, si] = np.fromiter((m.term for m in keep), np.int32, k)
+                vals[2, gi, si] = x >> 32
+                vals[3, gi, si] = x & 0xFFFFFFFF
+                vals[4, gi, si] = y >> 32
+                vals[5, gi, si] = y & 0xFFFFFFFF
+                vals[6, gi, si] = z >> 32
+                vals[7, gi, si] = z & 0xFFFFFFFF
+                vals[8, gi, si] = np.fromiter((m.ok for m in keep), np.int32, k)
+        # Per-(group, src) delivery stamp (ISR liveness), sparse form of the
+        # dense path's full-array mask. Packed rows always index the real
+        # prefix of the bucket, so G (not the padded idx) maps them back.
+        gi_loc, si_loc = np.nonzero(vals[0])
+        if len(gi_loc):
+            self._h_last_seen[G[gi_loc], si_loc] = self._ticks
+            if self._flight_wire:
+                # Wire trace (raft.flight_wire): inbox consumption — the
+                # same occupancy pass that stamped the liveness mirror.
+                self.flight.emit_many(
+                    self._wire_tick, "msg_delivered", G[gi_loc],
+                    vals[1][gi_loc, si_loc], vals[0][gi_loc, si_loc],
+                    si_loc, self.me, "host")
+        prop_groups = list(self._prop_groups)
+        if prop_groups:
+            pg = np.asarray(prop_groups, np.int64)
+            self._scatter_proposal_counts(
+                vals[9], np.searchsorted(G, pg), prop_groups)
+        return vals, staged, deferred, deferred_b
+
     def _scatter_proposal_counts(self, plane, rows, groups) -> None:
         """Row-9 proposal-depth lane: one scatter over the pending groups'
-        target rows."""
+        target rows (identity for the dense inbox, the searchsorted
+        compaction index for the sparse and active ones)."""
         plane[rows, 0] = np.fromiter(
             (len(self._proposals[g]) for g in groups), np.int32, len(groups))
 
@@ -260,6 +391,12 @@ class HostIO:
         self._nxt_fixups.clear()
         fx = np.asarray([(g, d, top) for (g, d), top in last.items()],
                         np.int64).reshape(-1, 3)
+        # The re-rooted rows now have nxt < head — the leader must keep
+        # streaming the capped catch-up, so the active-set scheduler may
+        # not leave them quiescent this tick. (Dense engines never drain
+        # _force_active; don't let it grow there.)
+        if self._active_set:
+            self._force_active.update(int(g) for g in fx[:, 0])
         dev = self._device
         idx = (host_to(fx[:, 0], dev), host_to(fx[:, 1], dev))
         t = host_to((fx[:, 2] >> 32).astype(np.int32), dev)

@@ -513,6 +513,11 @@ class SnapshotTransfer:
         # (a drifted mirror misroutes the active-row diff forever).
         self._h_head[g] = ch.head
         self._h_commit[g] = ch.committed
+        # The re-pointed row must take its next step through the full
+        # kernel (ack the leader's probe from the new head), not the
+        # active-set decay closed form.
+        if self._active_set:
+            self._force_active.add(g)
         # Adopt the snapshot's mint term if it is ahead of ours: the
         # term >= id_term(head) invariant must hold or a later election won
         # at a lower term would mint a non-advancing block id.

@@ -1,9 +1,11 @@
 """The tick-loop instruction count behind ``chip_smoke.py``'s kernel bound,
-on a small hand-written SASS listing in ``cuobjdump`` format."""
+on a small hand-written SASS listing in ``cuobjdump`` format; and phase 6a's
+twin run rehearsed on the host."""
 
 import types
 
 import pytest
+import torch
 
 import chip_smoke
 
@@ -64,3 +66,12 @@ def test_tick_loop_count_one_warp_barrier_per_tick(monkeypatch):
     # As above, with the second barrier now an IADD3 on the ALU pipe.
     assert got == {"ticks_per_body": 1.0, "issued": 10.0, "alu": 3.0, "imad": 0.0,
                    "issued_all": 12.0, "alu_all": 3.0, "skippable_parts": 1}
+
+
+def test_scale_parity_runs_on_the_host(capsys):
+    """Phase 6a's twin run with both clusters on the host at a tiny size: it
+    compares every tick and its gates hold (a capacity overflow; fallback
+    and compacted ticks and a refetch with the active set)."""
+    chip_smoke.engine_parity_scale(torch.device("cpu"), P=256, ticks=60)
+    out = capsys.readouterr().out
+    assert out.count("scale parity ok") == 2 and "refetches" in out
