@@ -50,7 +50,7 @@ Phases (any failure raises, and the script exits non-zero without a result):
    (``torch.profiler``).
 6. the engine's scale path on the card (sparse packed IO and the active-set
    scheduler; PyTorch ops only, no hand kernel). 6a: a 3-engine cluster on
-   the card and the same cluster on the CPU at P = 8192, 110 single ticks
+   the card and the same cluster on the CPU at P = 8192, 70 single ticks
    under a proposal drizzle, once with sparse IO and once with sparse IO
    plus the active set, every engine's compaction capacity set to 64 at the
    start: on every tick the encoded bytes of every outbound message, every
@@ -64,8 +64,27 @@ Phases (any failure raises, and the script exits non-zero without a result):
    active set and ``active_frac=0.01`` (1,000 proposals per round). Each
    must leave exactly one leader per group and commit blocks in the timed
    rounds, and prints the numbers of 5b plus the active set's counts.
+7. device-resident delivery on the card (``raft/route.py``, the payload
+   ring, leases; PyTorch ops only, no hand kernel). 7a: clusters on a
+   ``RouteFabric`` (payload ring of 8 slots x 512 bytes), 110 single ticks,
+   two payloads per proposal: dense IO at P = 4096 with AppendEntries capped
+   at 2 blocks, engine 2 cut off for 10 ticks and leases on, then sparse IO
+   and sparse IO plus the active set at P = 8192. On every tick a card
+   cluster on a card fabric must equal a CPU cluster on a CPU fabric in
+   everything: outbound bytes, mirrors, state leaves, chains, journal,
+   routed counts, ready planes, pending rows, ring statistics and lease
+   lanes. In the dense run a card cluster with no fabric must equal the
+   routed one in state, mirrors and chains, its wire entries being the
+   routed cluster's host entries plus its routed rows, and a card cluster
+   with leases off must equal that one on the wire. Every route scatter
+   must read the sender step's own device output, and no card engine's
+   ``tick_begin`` may wait for the device. 7b: ``bench_engine.run`` at
+   P = 100,000 (sparse IO, 1,000 proposals per round) in the order A B C C
+   B A: A host delivery, B ``device_route``, C ``device_route`` and
+   ``payload_ring``; each prints the numbers of 5b plus the routed/host
+   split, the ring's statistics and the delivery barrier's host ms.
 
-The line before the last is a JSON object describing each kernel (launches,
+Each phase prints the seconds since the start when it ends. The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
 """
 
@@ -201,20 +220,56 @@ def _sched(e) -> tuple:
             sorted(e._force_active))
 
 
-def _twin_run(dev, P: int, ticks: int, seed: int, window=lambda t: 1, cut=lambda t: (),
-              setup=None, on_tick=None, **engine_kw):
-    """The same 3-engine cluster on the card (``dev``) and on the CPU, fed
-    the same traffic for ``ticks`` split-phase rounds: from tick 20, every
-    second tick, one payload each for group 0 and 16 random groups, to
-    whichever engine leads; messages are delivered unless an end is in
-    ``cut(t)``. Raises on the first tick where an outbound message's bytes,
-    a host mirror, a state leaf or the scheduler's state (:func:`_sched`)
-    differ. A card engine's ``tick_begin`` runs under CUDA's sync debug
-    mode set to error, so a host wait inside it raises, except the active
-    set's counted refetch (``_refetch_wake_inputs``). ``setup(engine)`` runs
-    on every engine before the first tick, ``on_tick(t, card engines)``
-    after every tick. Returns the card engines, both sides' group-0 FSMs and
-    the number of messages compared."""
+def _entries(outbound) -> int:
+    """Consensus entries in a tick's outbound: a batch counts its entries,
+    a keepalive ping none."""
+    from josefine_tpu_torch.raft import rpc
+
+    return sum(len(m) if isinstance(m, rpc.MsgBatch) else int(m.kind != rpc.MSG_PING)
+               for m in outbound)
+
+
+def _fabric_view(fab) -> dict:
+    """What routing decided on one side, comparable across devices: the
+    fabric's counters, pending rows, ring statistics and ready kind mirrors
+    and planes."""
+    import numpy as np
+
+    arr = lambda a: np.asarray(a.cpu() if hasattr(a, "cpu") else a).tobytes()
+    return {"routed_total": fab.routed_total, "pending": fab.pending_counts(),
+            "ring_stats": fab.ring_stats(),
+            "ready_kinds": {s: arr(k) for s, k in sorted(fab._ready_kinds.items())},
+            "ready": {s: arr(p) for s, p in sorted(fab._ready.items())}}
+
+
+def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
+               cut=lambda t: (), setup=None, on_tick=None, params_kw=None, bursts=1):
+    """Clusters of 3 engines fed the same traffic for ``ticks`` split-phase
+    rounds: from tick 20, every second tick, ``bursts`` payloads each for
+    group 0 and 16 random groups, to whichever engine leads; messages are
+    delivered unless an end is in ``cut(t)``.
+
+    ``sides`` lists ``(device, engine options, RouteFabric options or None,
+    relation)``; a side with fabric options registers its engines on a
+    fabric of its own (its link filter follows ``cut``), flushed after each
+    round's delivery. ``relation`` is None for side 0, else ``(kind, i)``:
+    on every tick this side's host mirrors, state leaves, chains and
+    scheduler (:func:`_sched`) must equal side ``i``'s, and besides, by
+    kind: ``"exact"`` — every outbound message's bytes, the journal, the
+    routed counts, the fabric (:func:`_fabric_view`) and the lease lane and
+    plane; ``"wire"`` — the outbound bytes and the journal; ``"host_only"``
+    (this side has no fabric, side ``i`` does) — each engine's consensus
+    entries equal side ``i``'s host entries plus its routed rows. A card
+    engine's ``tick_begin`` runs under CUDA's sync debug mode set to error,
+    so a host wait inside it raises, except the active set's counted
+    refetch (``_refetch_wake_inputs``). On every fabric the route
+    scatter's source must be the sender step's own output, on the fabric's
+    device.
+    ``setup(engine)`` runs on every engine before the first tick,
+    ``on_tick(t, side-0 engines)`` after every tick. Group 0's FSMs must
+    apply the same non-empty sequence on every side. Returns the sides as
+    ``(engines, fabric)``, side 0's group-0 applies, the messages compared
+    and the checks of the scatter source."""
     import asyncio
 
     import numpy as np
@@ -223,16 +278,42 @@ def _twin_run(dev, P: int, ticks: int, seed: int, window=lambda t: 1, cut=lambda
     from josefine_tpu_torch import interop
     from josefine_tpu_torch.models.types import step_params
     from josefine_tpu_torch.raft.engine import RaftEngine
+    from josefine_tpu_torch.raft.route import RouteFabric
     from josefine_tpu_torch.utils.kv import MemKV
 
-    def cluster(device):
+    pkw = params_kw or dict(timeout_min=3, timeout_max=8, hb_ticks=16)
+    now = [0]
+    src_checks = [0]
+
+    def cluster(device, engine_kw, fabric_kw):
         fsms = [_ListFsm() for _ in range(3)]
         engines = [RaftEngine(MemKV(), [1, 2, 3], i + 1, groups=P, fsms={0: fsms[i]},
-                              params=step_params(timeout_min=3, timeout_max=8, hb_ticks=16,
-                                                 device=device),
+                              params=step_params(**pkw, device=device),
                               base_seed=i, device=device, **engine_kw)
                    for i in range(3)]
-        return engines, fsms
+        fab = None
+        if fabric_kw is not None:
+            fab = RouteFabric(link_filter=lambda s, d: not ({s, d} & set(cut(now[0]))),
+                              **fabric_kw)
+            for e in engines:
+                fab.register(e)
+            check_source(fab)
+        return engines, fsms, fab
+
+    def check_source(fab):
+        inner = fab._src_ov
+
+        def src_ov(h):
+            src = inner(h)
+            own = h["ov"] if h["mode"] == "sparse" else h["dev_flat"]
+            if not (src.device == fab.device and src.untyped_storage().data_ptr()
+                    == own.untyped_storage().data_ptr()):
+                raise AssertionError("route parity: the scatter source is not the "
+                                     "sender step's device output")
+            src_checks[0] += 1
+            return src
+
+        fab._src_ov = src_ov
 
     def allow_refetch(e):
         inner = e._refetch_wake_inputs
@@ -259,58 +340,105 @@ def _twin_run(dev, P: int, ticks: int, seed: int, window=lambda t: 1, cut=lambda
         return {k: v for k, v in vars(e).items()
                 if k.startswith("_h_") and isinstance(v, np.ndarray)}
 
+    def lane(e):
+        plane = e._lease_plane
+        return e.lease_summary(), None if plane is None else np.asarray(
+            plane.cpu() if hasattr(plane, "cpu") else plane).tolist()
+
+    def check(t, kind, a, b, res_a, res_b, routed_a):
+        (ea_all, _, fab_a), (eb_all, _, fab_b) = a, b
+        for i, (ea, eb, ra, rb) in enumerate(zip(ea_all, eb_all, res_a, res_b)):
+            w = f"tick {t} engine {i}"
+            ma, mb = mirrors(ea), mirrors(eb)
+            for k in ma:
+                if not np.array_equal(ma[k], mb[k]):
+                    raise AssertionError(f"{kind} parity: {w}: {k} differs")
+            if _sched(ea) != _sched(eb):
+                raise AssertionError(f"{kind} parity: {w}: scheduler {_sched(ea)} != "
+                                     f"{_sched(eb)}")
+            for j, (x, y) in enumerate(zip(interop.state_to_numpy(ea.state),
+                                           interop.state_to_numpy(eb.state))):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"{kind} parity: {w}: state leaf {j} differs")
+            if [(c.head, c.committed) for c in ea.chains] != \
+                    [(c.head, c.committed) for c in eb.chains]:
+                raise AssertionError(f"{kind} parity: {w}: chains differ")
+            if kind in ("exact", "wire"):
+                if [m.encode() for m in ra.outbound] != [m.encode() for m in rb.outbound]:
+                    raise AssertionError(f"{kind} parity: {w}: outbound differs")
+                if ea.flight.events() != eb.flight.events():
+                    raise AssertionError(f"{kind} parity: {w}: journal differs")
+            if kind == "exact":
+                if (ea.routed_msgs, ea._route_dirty, lane(ea)) != \
+                        (eb.routed_msgs, eb._route_dirty, lane(eb)):
+                    raise AssertionError(f"exact parity: {w}: routed counts or lease "
+                                         "lane differ")
+            if kind == "host_only" and _entries(rb.outbound) != \
+                    _entries(ra.outbound) + routed_a[i]:
+                raise AssertionError(f"routed == host-only: {w}: entries not conserved")
+        if kind == "exact" and fab_a is not None and \
+                _fabric_view(fab_a) != _fabric_view(fab_b):
+            raise AssertionError(f"exact parity: tick {t}: the fabrics differ")
+
     async def run():
-        sides = [cluster(dev), cluster("cpu")]
-        for e in sides[0][0] + sides[1][0]:
-            if setup is not None:
-                setup(e)
-            if e.state.term.is_cuda:
-                allow_refetch(e)
+        built = [cluster(dev, kw, fkw) for dev, kw, fkw, _ in sides]
+        for engines, _, _ in built:
+            for e in engines:
+                if setup is not None:
+                    setup(e)
+                if e.state.term.is_cuda:
+                    allow_refetch(e)
         rng = np.random.default_rng(seed)
         sent = 0
         for t in range(ticks):
+            now[0] = t
+            before = [[e.routed_msgs for e in engines] for engines, _, _ in built]
             results = []
-            for engines, _ in sides:
+            for engines, _, _ in built:
                 hs = [begin(e, e.suggest_window(window(t))) for e in engines]
                 results.append([e.tick_finish(h) for e, h in zip(engines, hs)])
-            for i, (a, b) in enumerate(zip(*results)):
-                wa, wb = [m.encode() for m in a.outbound], [m.encode() for m in b.outbound]
-                if wa != wb:
-                    raise AssertionError(f"engine parity: tick {t} engine {i}: outbound differs")
-                sent += len(wa)
-            for (engines, _), res in zip(sides, results):
+            sent += sum(len(r.outbound) for r in results[0])
+            for (engines, _, fab), res in zip(built, results):
                 for r in res:
                     for m in r.outbound:
                         if m.src not in cut(t) and m.dst not in cut(t):
                             engines[m.dst].receive(m)
-            for i, (ea, eb) in enumerate(zip(sides[0][0], sides[1][0])):
-                ma, mb = mirrors(ea), mirrors(eb)
-                for k in ma:
-                    if not np.array_equal(ma[k], mb[k]):
-                        raise AssertionError(f"engine parity: tick {t} engine {i}: {k} differs")
-                if _sched(ea) != _sched(eb):
-                    raise AssertionError(f"engine parity: tick {t} engine {i}: scheduler "
-                                         f"{_sched(ea)} != {_sched(eb)}")
-                for j, (x, y) in enumerate(zip(interop.state_to_numpy(ea.state),
-                                               interop.state_to_numpy(eb.state))):
-                    if not np.array_equal(x, y):
-                        raise AssertionError(
-                            f"engine parity: tick {t} engine {i}: state leaf {j} differs")
+                if fab is not None:
+                    fab.flush()
+            for j, (_, _, _, rel) in enumerate(sides):
+                if rel is not None:
+                    kind, i = rel
+                    routed = [e.routed_msgs - b for e, b in zip(built[i][0], before[i])]
+                    check(t, kind, built[i], built[j], results[i], results[j], routed)
             if on_tick is not None:
-                on_tick(t, sides[0][0])
+                on_tick(t, built[0][0])
             if t >= 20 and t % 2 == 0:
                 for g in sorted(set(rng.integers(0, P, 16).tolist()) | {0}):
-                    for ea, eb in zip(sides[0][0], sides[1][0]):
-                        if ea.is_leader(g) and ea.me not in cut(t):
-                            ea.propose(g, b"t%d-g%d" % (t, g)).add_done_callback(_retrieve)
-                            eb.propose(g, b"t%d-g%d" % (t, g)).add_done_callback(_retrieve)
-                            break
-        fsms = [f.applied for f in sides[0][1]], [f.applied for f in sides[1][1]]
-        if fsms[0] != fsms[1] or not fsms[0][0]:
+                    lead = next((i for i, e in enumerate(built[0][0])
+                                 if e.is_leader(g) and e.me not in cut(t)), None)
+                    if lead is None:
+                        continue
+                    for engines, _, _ in built:
+                        for k in range(bursts):
+                            engines[lead].propose(g, b"t%d-g%d-%d" % (t, g, k)
+                                                  ).add_done_callback(_retrieve)
+        applied = [[f.applied for f in fsms] for _, fsms, _ in built]
+        if any(a != applied[0] for a in applied) or not applied[0][0]:
             raise AssertionError("engine parity: group 0's FSMs differ or applied nothing")
-        return sides[0][0], fsms[0], sent
+        return [(engines, fab) for engines, _, fab in built], applied[0], sent, src_checks[0]
 
     return asyncio.run(run())
+
+
+def _twin_run(dev, P: int, ticks: int, seed: int, window=lambda t: 1, cut=lambda t: (),
+              setup=None, on_tick=None, **engine_kw):
+    """The same 3-engine cluster on the card (``dev``) and on the CPU
+    (:func:`_run_sides`, relation ``"exact"``). Returns the card engines,
+    their group-0 FSMs' applies and the number of messages compared."""
+    sides, applied, sent, _ = _run_sides(
+        P, ticks, seed, [(dev, engine_kw, None, None), ("cpu", engine_kw, None, ("exact", 0))],
+        window=window, cut=cut, setup=setup, on_tick=on_tick)
+    return sides[0][0], applied, sent
 
 
 def engine_parity(dev, P: int = 512) -> None:
@@ -388,7 +516,7 @@ def _retrieve(fut):
     fut.cancelled() or fut.exception()
 
 
-def engine_parity_scale(dev, P: int = 8192, ticks: int = 110) -> None:
+def engine_parity_scale(dev, P: int = 8192, ticks: int = 70) -> None:
     """Phase 6a: the twin clusters (:func:`_twin_run`) at the sparse-IO
     scale, single ticks, once with sparse IO and once with sparse IO plus
     the active set. Every engine's compaction capacity starts at 64, so the
@@ -435,6 +563,87 @@ def engine_parity_scale(dev, P: int = 8192, ticks: int = 110) -> None:
         print(f"{line}; {seconds:.1f} s", flush=True)
 
 
+def route_parity(dev, P_dense: int = 4096, P_scale: int = 8192, ticks: int = 110) -> None:
+    """Phase 7a: device-resident delivery (``raft/route.py``, the payload
+    ring on: 8 slots of 512 bytes) through :func:`_run_sides`, two payloads
+    per proposal so AppendEntries carry spans of several blocks.
+
+    Dense IO at ``P_dense``, AppendEntries capped at 2 blocks and engine 2
+    cut off for ticks 45-54 (capped catch-up routed from the ring), with
+    leases on (hence ``hb_ticks=1``, ``timeout_min=4``): the card cluster on
+    a card fabric against the CPU cluster on a CPU fabric (exact), a card
+    cluster with no fabric against the routed one (routed == host-only),
+    and a card cluster with no fabric and leases off against that one
+    (leases-on == leases-off on the wire). Then sparse IO, and sparse IO
+    with the active set, at ``P_scale`` (card fabric against CPU fabric)."""
+    ring = dict(payload_ring=True, ring_slots=8, ring_bytes=512)
+    capped = dict(max_append_entries=2)
+    runs = [
+        ("dense, leases", P_dense, dict(
+            sides=[(dev, dict(capped, leases=True), ring, None),
+                   ("cpu", dict(capped, leases=True), ring, ("exact", 0)),
+                   (dev, dict(capped, leases=True), None, ("host_only", 0)),
+                   (dev, capped, None, ("wire", 2))],
+            params_kw=dict(timeout_min=4, timeout_max=8, hb_ticks=1),
+            cut=lambda t: (2,) if 45 <= t < 55 else ())),
+        ("sparse", P_scale, dict(sides=[(dev, dict(sparse_io=True), ring, None),
+                                        ("cpu", dict(sparse_io=True), ring, ("exact", 0))])),
+        ("sparse + active set", P_scale, dict(
+            sides=[(dev, dict(sparse_io=True, active_set=True), ring, None),
+                   ("cpu", dict(sparse_io=True, active_set=True), ring, ("exact", 0))])),
+    ]
+    for what, P, kw in runs:
+        t0 = time.perf_counter()
+        sides, applied, sent, src_checks = _run_sides(P, ticks, seed=17, bursts=2, **kw)
+        seconds = time.perf_counter() - t0
+        card, fab = sides[0]
+        ring_stats = fab.ring_stats()
+        if not (fab.routed_total and ring_stats["payload_aes_routed"] and src_checks):
+            raise AssertionError(f"route parity ({what}): routed {fab.routed_total}, ring "
+                                 f"{ring_stats}, source checks {src_checks}")
+        line = (f"route parity ok ({what}): P={P}, 3 engines on a card fabric == 3 on a "
+                f"CPU fabric for {ticks} ticks: {sent} outbound messages byte-equal, every "
+                f"mirror, state leaf, journal, routed count and fabric plane equal; "
+                f"{fab.routed_total} rows routed on the card ({src_checks} scatters "
+                f"checked to read the step's device output), ring {ring_stats}; "
+                f"{len(applied[0])} blocks applied on group 0")
+        if len(sides) > 2:
+            leases = [e.lease_summary() for e in card]
+            if not all(s["credits"] for s in leases):
+                raise AssertionError(f"route parity: a lease lane earned no credit: {leases}")
+            line += (f"; the routed cluster == a host-only one (state, mirrors, chains, "
+                     f"entries conserved) and leases on == leases off on the wire, lease "
+                     f"lanes {leases}")
+        if "active" in what:
+            line += (f"; {sum(e.active_sched_ticks for e in card)} compacted, "
+                     f"{sum(e.active_fallback_ticks for e in card)} fallback engine-ticks")
+        print(f"{line}; no host wait in any card tick_begin but the counted refetches; "
+              f"{seconds:.1f} s", flush=True)
+
+
+def route_bench(card: str, P: int = 100_000) -> None:
+    """Phase 7b: ``bench_engine.run`` at P = 100,000 (sparse IO), 1,000
+    proposals per round (``active_frac=0.01``), 40 warmup and 20 timed
+    rounds, in the order A B C C B A: A the host path, B ``device_route``,
+    C ``device_route`` with ``payload_ring``. Each must leave one leader per
+    group and commit blocks; B and C must route."""
+    modes = {"A host": {}, "B route": dict(device_route=True),
+             "C route+ring": dict(device_route=True, payload_ring=True)}
+    for name in ("A host", "B route", "C route+ring", "C route+ring", "B route", "A host"):
+        row = engine_bench(card, P=P, active_frac=0.01, **modes[name])
+        stats = row.get("device_route_stats")
+        if stats is not None and not stats["routed_msgs"]:
+            raise AssertionError(f"route bench {name}: nothing routed")
+        busy = row["device_busy"]
+        print(f"route bench {name}: {row['ms_per_tick']:.3f} ms/tick, "
+              f"{row['committed_blocks_per_sec']:.6g} blocks/s, commit latency p50 "
+              f"{row['commit_latency_ticks']['p50']} p99 {row['commit_latency_ticks']['p99']}, "
+              f"idle share {busy['idle_share']:.3f}, {busy['device_ops'] / busy['rounds']:.0f} "
+              f"device ops per round, step launches "
+              f"{row['window_step']['1']['launch_calls']}; route stats "
+              f"{json.dumps(stats)} [{card}]", flush=True)
+
+
 def engine_bench(card: str, P: int = 4096, **kw) -> dict:
     """Phases 5b, 6b and 6c: the engine path at full size on the card
     (``bench_engine.run``; ``kw`` picks the active set), with its gates."""
@@ -449,7 +658,9 @@ def engine_bench(card: str, P: int = 4096, **kw) -> dict:
     if row["committed_blocks"] <= 0:
         raise AssertionError("engine path: no block committed in the timed rounds")
     mode = ("sparse IO" if row["sparse_io"] else "dense IO") + (
-        f" + active set at {row['active_frac']}" if row["active_set"] else "")
+        f" + active set at {row['active_frac']}" if row["active_set"] else "") + (
+        " + device route" if row["device_route"] else "") + (
+        " + payload ring" if row["payload_ring"] else "")
     lat = row["commit_latency_ticks"]
     phases = ", ".join(f"{k} {v['ms_per_round']:.3f}"
                        for k, v in row["profile_phases"].items())
@@ -495,6 +706,10 @@ def main() -> int:
     from josefine_tpu_torch.ops import _build, fused_step
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def phase_done(n: int) -> None:
+        print(f"phase {n} done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 1. the card ----
     kind = torch.cuda.get_device_name(0)
@@ -580,6 +795,8 @@ def main() -> int:
     for N in (1, 4, 7, 16):
         check(f"P=4096 N={N} ({fused_step.groups_per_warp(N)} groups per warp), 50 ticks",
               *setup(4096, N), 50)
+
+    phase_done(3)
 
     # ---- 4. the main path at full size ----
     fused_step.launches = 0
@@ -690,15 +907,26 @@ def main() -> int:
               f"{blocks_t / (SMS * shape['resident_blocks_per_sm']):.3f} waves, kernel alone "
               f"{sorted(r[3] for r in got)[1]:.3f} ms (median of 3) [{card}]", flush=True)
 
+    phase_done(4)
+
     # ---- 5. the consensus engine on the card ----
     upload_no_wait(dev, card)
     engine_parity(dev)
     engine_bench(card)
 
+    phase_done(5)
+
     # ---- 6. the engine's scale path: sparse IO and the active set ----
     engine_parity_scale(dev)
     engine_bench(card, P=100_000)
     engine_bench(card, P=100_000, active_set=True, active_frac=0.01)
+
+    phase_done(6)
+
+    # ---- 7. device-resident delivery: the route fabric, the payload ring, leases ----
+    route_parity(dev)
+    route_bench(card)
+    phase_done(7)
 
     print(json.dumps({"kernels": [{
         "name": "fused_window",

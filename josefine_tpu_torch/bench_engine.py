@@ -1,7 +1,8 @@
 """Host-bridge benchmark of the PyTorch port: a 3-engine in-process cluster.
 
 The twin of the repository's ``bench_engine.py`` (its ``bench_one``,
-split-phase path, with its ``--active-set`` / ``--active-frac`` options).
+split-phase path, with its ``--active-set`` / ``--active-frac`` and
+``--device-route`` / ``--payload-ring`` options).
 Where ``josefine_tpu_torch.bench`` drives the bare fused-window kernel, this
 drives the path the product runs: inbox packing, the packed window step on
 the card, one device→host fetch per engine tick, chain append/commit, FSM
@@ -17,12 +18,17 @@ on all three engines, then ``tick_finish`` on each, then delivery. The
 engines pick their IO as the product does: dense up to 4096 groups, sparse
 above. ``--active-set`` turns the active-set scheduler on; ``--active-frac
 F`` offers one payload to exactly round(F * P) distinct groups per round (a
-permutation slice) instead of the 256 random ones.
+permutation slice) instead of the 256 random ones. ``--device-route``
+registers the three engines on a ``RouteFabric``: payload-free consensus
+rows go engine to engine on the card, flushed at the round's delivery
+barrier; ``--payload-ring`` adds the fabric's payload ring, so AppendEntries
+whose blocks are resident route on the card too.
 
 Run on the card::
 
     python -m josefine_tpu_torch.bench_engine [--partitions 4096] [--ticks 20]
     python -m josefine_tpu_torch.bench_engine --partitions 100000 --active-set --active-frac 0.01
+    python -m josefine_tpu_torch.bench_engine --partitions 100000 --active-frac 0.01 --device-route --payload-ring
 
 There is no CPU fallback: with no card it raises. ``--device cpu`` runs on
 the host at small sizes; its numbers are host numbers and are labeled so.
@@ -42,8 +48,10 @@ import torch
 
 from josefine_tpu_torch.bench import card_label
 from josefine_tpu_torch.models.types import LEADER, resolve_device, step_params
+from josefine_tpu_torch.raft import rpc
 from josefine_tpu_torch.raft.engine import RaftEngine
 from josefine_tpu_torch.raft.hostio import host_to
+from josefine_tpu_torch.raft.route import RouteFabric
 from josefine_tpu_torch.raft.packed_step import (
     _active_window_fn,
     _decay_scatter_fn,
@@ -118,10 +126,14 @@ def _step_program(engine: RaftEngine, window: int):
     the sparse step at the current capacity (touched-row bucket of 256,
     all padding), or the active-set trio (gather, compact window,
     decay-scatter) over a bucket of as many rows as its last schedule woke,
-    drawn at random."""
+    drawn at random. An engine on a route fabric merges an empty routed
+    plane, as its routed ticks do."""
     dev, P, N = engine._device, engine.P, engine.N
     base = (engine.params, engine.member, engine._me_dev, engine.state)
     pf = host_to(np.zeros(N, np.int32), dev)
+    plane = (None if engine._fabric is None
+             else torch.zeros((9, P, N), dtype=torch.int32, device=dev))
+    routed = "" if plane is None else ", routed"
     if engine._active_set and engine._sched_mode == "compacted":
         A = max(1, engine._last_wake_rows)
         k = active_bucket(A, P)
@@ -133,18 +145,18 @@ def _step_program(engine: RaftEngine, window: int):
         def active():
             st_c, mem_c = _gather_active(engine.state, engine.member, idx)
             rows, flat = _active_window_fn(window)(engine.params, mem_c, engine._me_dev,
-                                                   st_c, vals, pf)
+                                                   st_c, vals, pf, plane, idx)
             return _decay_scatter_fn(window)(engine.params, engine.state, pf, idx, rows), flat
 
-        return active, f"active (bucket {k} for {A} rows)"
+        return active, f"active (bucket {k} for {A} rows{routed})"
     if engine._sparse:
         fn = _sparse_window_fn(engine._k_out, window)
         idx = host_to(np.full(min(256, P), P, np.int64), dev)
         vals = host_to(np.zeros((10, min(256, P), N), np.int32), dev)
-        return (lambda: fn(*base, pf, idx, vals)), f"sparse (k_out {engine._k_out})"
+        return (lambda: fn(*base, pf, idx, vals, plane)), f"sparse (k_out {engine._k_out}{routed})"
     fn = _window_step_fn(window)
     in10 = host_to(np.zeros((10, P, N), np.int32), dev)
-    return (lambda: fn(*base, in10, pf)), "dense"
+    return (lambda: fn(*base, in10, pf, plane)), "dense" + (" (routed)" if routed else "")
 
 
 def window_step_profile(engine: RaftEngine, window: int, reps: int = 20) -> dict:
@@ -185,7 +197,8 @@ def window_step_profile(engine: RaftEngine, window: int, reps: int = 20) -> dict
 
 async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.device,
                  sparse_io: bool | None, active_set: bool,
-                 active_frac: float | None) -> dict:
+                 active_frac: float | None, device_route: bool,
+                 payload_ring: bool) -> dict:
     params = step_params(timeout_min=3, timeout_max=8, hb_ticks=16, device=device)
     # Offered load as an activity fraction: exactly round(frac * P) distinct
     # groups get one payload per round (a permutation slice; sampling with
@@ -197,6 +210,11 @@ async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.dev
                           fsms={g: fsm for g in range(P)}, sparse_io=sparse_io,
                           active_set=active_set, device=device)
                for i in range(N)]
+    fabric = None
+    if device_route or payload_ring:
+        fabric = RouteFabric(payload_ring=payload_ring)
+        for e in engines:
+            fabric.register(e)
     init_s = time.perf_counter() - t0
     for e in engines:
         e.enable_profiling()
@@ -209,9 +227,11 @@ async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.dev
     buckets: dict[int, int] = {}  # compact bucket size -> engine-ticks
     k_out_history = [[[0, e._k_out]] for e in engines]
     lat_hist = REGISTRY.histogram("raft_commit_latency_ticks")
+    host_msgs = 0  # host-decoded wire entries (a batch counts its entries)
+    flush_ms = 0.0  # host ms of the fabric's delivery barrier
 
     def one_tick(live: bool):
-        nonlocal proposed, rounds
+        nonlocal proposed, rounds, host_msgs, flush_ms
         # Split-phase: dispatch all three engines' device steps before
         # fetching any result. Each engine applies the adaptive window
         # policy (single ticks until leaders exist, then the full window).
@@ -228,7 +248,14 @@ async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.dev
             wake_rows[1] += 1
         rounds += 1
         for m in outbound:
+            host_msgs += len(m) if isinstance(m, rpc.MsgBatch) else 1
             engines[m.dst].receive(m)
+        if fabric is not None:
+            # The delivery barrier: routed rows land with the host ones.
+            # With the payload ring its gather waits for the card.
+            t_flush = time.perf_counter()
+            fabric.flush()
+            flush_ms += (time.perf_counter() - t_flush) * 1e3
         if live:
             if active_frac is None:
                 groups = rng.integers(0, P, offered)
@@ -253,6 +280,11 @@ async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.dev
     executed = [0] * N
     wake_rows[:] = [0, 0]
     buckets.clear()
+    host_msgs, flush_ms = 0, 0.0
+    if fabric is not None:
+        fabric.ring_routed = fabric.ring_capped = 0
+        for r in fabric.rings.values():
+            r.staged_total = r.spills = r.oversize = r.pin_skips = 0
     # Measure the timed loop only: drop the warmup's latency observations
     # and the engines' open entries for warmup-minted blocks.
     lat_hist.values.clear()
@@ -261,12 +293,16 @@ async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.dev
         e.profiler.reset()
         e.active_sched_ticks = e.active_sched_rows = 0
         e.active_fallback_ticks = e.active_refetches = 0
+        e.routed_msgs = 0
     c0 = commit_seqs()
     t0 = time.perf_counter()
     for _ in range(ticks):
         one_tick(live=True)
     dt = time.perf_counter() - t0
     committed = int((commit_seqs() - c0).sum())
+    routed_msgs = sum(e.routed_msgs for e in engines)
+    timed_host_msgs, timed_flush_ms = host_msgs, flush_ms
+    ring = fabric.ring_stats() if fabric is not None else None
     dev_ticks = min(executed) or ticks
     phases = {}
     for e in engines:
@@ -288,6 +324,8 @@ async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.dev
         "sparse_io": engines[0]._sparse,
         "active_set": active_set,
         "active_frac": active_frac,
+        "device_route": fabric is not None,
+        "payload_ring": payload_ring,
         "init_s": init_s,
         "ticks": dev_ticks,
         "dispatch_rounds": ticks,
@@ -321,6 +359,19 @@ async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.dev
             "mean_wake_frac": wake_rows[0] / max(1, wake_rows[1]) / P,
             "buckets": dict(sorted(buckets.items())),
         }
+    if fabric is not None:
+        # Timed-loop delivery split: rows routed on the card against wire
+        # entries decoded on the host, the payload ring's counters, and the
+        # host ms of the delivery barrier per round (not an engine phase:
+        # the driver calls it).
+        total = routed_msgs + timed_host_msgs
+        row["device_route_stats"] = {
+            "routed_msgs": routed_msgs,
+            "host_msgs": timed_host_msgs,
+            "routed_frac": routed_msgs / total if total else 0.0,
+            "ring": ring,
+            "flush_ms_per_round": timed_flush_ms / ticks,
+        }
     if on_card:
         # The card's busy and idle share over 3 more rounds under the same
         # load, from a trace of the card alone; the 3 rounds before it, not
@@ -333,28 +384,35 @@ async def _bench(P: int, ticks: int, warmup: int, window: int, device: torch.dev
         evs, wall_ms = _traced(lambda: [one_tick(live=True) for _ in range(3)], device,
                                host=False)
         busy = _busy_ms(evs)
+        from torch.autograd import DeviceType
+
         row["device_busy"] = {"rounds": 3, "wall_ms": wall_ms, "untraced_wall_ms": untraced_ms,
-                              "busy_ms": busy, "idle_share": 1 - busy / wall_ms}
-        row["window_step"] = {str(w): window_step_profile(engines[0], w) for w in (1, 4)}
+                              "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+                              "device_ops": sum(e.device_type == DeviceType.CUDA
+                                                for e in evs)}
+        row["window_step"] = {str(w): window_step_profile(engines[0], w)
+                              for w in sorted({1, window})}
     return row
 
 
 def run(P: int = PARTITIONS, ticks: int = TICKS, warmup: int = WARMUP, window: int = 1,
         device="cuda", sparse_io: bool | None = None, active_set: bool = False,
-        active_frac: float | None = None) -> dict:
+        active_frac: float | None = None, device_route: bool = False,
+        payload_ring: bool = False) -> dict:
     """Build the cluster, warm up ``warmup`` rounds, time ``ticks`` rounds
     and return the result row: ms per device tick, committed blocks/s,
     commit latency p50/p99 in device ticks, host ms per engine phase per
     round (cluster sum), leaders per group, the sparse capacity's history,
-    the active-set scheduler's counts, and on the card the card's busy/idle
-    share over 3 more rounds and the window step's own profile at windows 1
-    and 4. ``sparse_io=None`` lets the engines choose (sparse above 4096
-    groups)."""
+    the active-set scheduler's counts, with a fabric the routed/host split
+    (``device_route_stats``), and on the card the card's busy/idle share and
+    device ops over 3 more rounds and the window step's own profile at
+    window 1 and at ``window``. ``sparse_io=None`` lets the engines choose (sparse above
+    4096 groups); ``payload_ring`` implies ``device_route``."""
     dev = resolve_device(device)
     if dev.type == "cpu" and P > CPU_MAX_PARTITIONS:
         raise ValueError(f"on the host this runs at most {CPU_MAX_PARTITIONS} groups")
     return asyncio.run(_bench(P, ticks, warmup, window, dev, sparse_io, active_set,
-                              active_frac))
+                              active_frac, device_route, payload_ring))
 
 
 def main(argv=None):
@@ -366,10 +424,13 @@ def main(argv=None):
     ap.add_argument("--window", type=int, default=1)
     ap.add_argument("--active-set", action="store_true")
     ap.add_argument("--active-frac", type=float, default=None)
+    ap.add_argument("--device-route", action="store_true")
+    ap.add_argument("--payload-ring", action="store_true")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.partitions, args.ticks, args.warmup, args.window,
                          device=args.device, active_set=args.active_set,
-                         active_frac=args.active_frac)))
+                         active_frac=args.active_frac, device_route=args.device_route,
+                         payload_ring=args.payload_ring)))
 
 
 if __name__ == "__main__":

@@ -11,13 +11,21 @@ math. This package owns everything variable-length and durable around it:
 * :mod:`josefine_tpu_torch.raft.engine`: the per-node bridge. It packs
   received wire messages into the inbox, steps the device, decodes the
   outbox into wire messages with payload spans attached, and applies newly
-  committed blocks to the FSM.
-
-The route fabric and payload ring of the JAX package are not ported yet.
+  committed blocks to the FSM;
+* :mod:`josefine_tpu_torch.raft.route`: device-resident delivery between
+  co-located engines (``RouteFabric``);
+* :mod:`josefine_tpu_torch.raft.payload_ring`: the bounded device payload
+  ring behind ``RouteFabric(payload_ring=True)``, so AppendEntries with
+  ring-resident spans route on the device too;
+* :mod:`josefine_tpu_torch.raft.lease`: tick-denominated leader leases
+  (``RaftEngine(leases=True)``).
 """
 
 from josefine_tpu_torch.raft.chain import Block, Chain
 from josefine_tpu_torch.raft.fsm import Fsm, Driver
 from josefine_tpu_torch.raft.engine import RaftEngine
+from josefine_tpu_torch.raft.payload_ring import PayloadRing
+from josefine_tpu_torch.raft.route import RouteFabric
 
-__all__ = ["Block", "Chain", "Fsm", "Driver", "RaftEngine"]
+__all__ = ["Block", "Chain", "Fsm", "Driver", "RaftEngine", "PayloadRing",
+           "RouteFabric"]

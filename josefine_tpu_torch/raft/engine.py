@@ -16,12 +16,14 @@ row of the (partitions x nodes) tensor that lives on this host). Per tick it:
 
 The role machine itself runs on the device; the host moves payloads and
 durability. This is the port of the JAX package's ``raft/engine.py`` with
-dense and sparse packed IO (sparse by default above 4096 groups) and the
-active-set scheduler. Backends: ``"torch"`` (the batched torch step, on
-``device``) and ``"python"`` (the scalar oracle). Options whose machinery
-is not ported yet (a device mesh, leases, the route fabric) raise
-``NotImplementedError`` naming the ROADMAP item that brings them; nothing
-silently runs another path.
+dense and sparse packed IO (sparse by default above 4096 groups), the
+active-set scheduler, device-resident delivery between co-located engines
+(a :class:`~josefine_tpu_torch.raft.route.RouteFabric` registers itself as
+``_fabric``) and the tick-denominated leader leases (``leases=True``,
+raft/lease.py). Backends: ``"torch"`` (the batched torch step, on
+``device``) and ``"python"`` (the scalar oracle). A device mesh is not
+ported yet and raises ``NotImplementedError`` naming the ROADMAP item that
+brings it; nothing silently runs another path.
 
 Invariant: an AppendEntries only reaches the device if its payload span was
 validated against its (x, y] claim (rpc.span_is_valid), so "device accepted"
@@ -30,7 +32,8 @@ always implies "host can extend the chain".
 Device discipline: ``tick_begin`` never waits for the device. It uploads
 the packed inbox without a host sync, enqueues the window step, and starts
 one asynchronous copy of the flat output into pinned host memory;
-``tick_fetch`` waits for that copy alone. The one exception is the
+``tick_fetch`` waits for that copy alone. A routed inbox plane is
+already on the device and merges inside the step. The one exception is the
 active-set scheduler's refetch of five (P,) vectors on re-entry after a
 dense/sparse fallback tick (``_refetch_wake_inputs``, counted in
 ``active_refetches``). A sparse tick whose changed rows overflow the
@@ -81,6 +84,12 @@ from josefine_tpu_torch.raft.group_admin import (
     GroupAdmin,
 )
 from josefine_tpu_torch.raft.hostio import HostIO, host_to
+from josefine_tpu_torch.raft.lease import (
+    LeaseLane,
+    check_lease_params,
+    m_reads_fallback,
+    m_reads_leased,
+)
 from josefine_tpu_torch.raft.membership import ConfChange, MemberTable, is_conf
 from josefine_tpu_torch.raft.migration import is_migration_fence
 from josefine_tpu_torch.raft.packed_step import (
@@ -89,6 +98,9 @@ from josefine_tpu_torch.raft.packed_step import (
     _decay_only_fn,
     _decay_scatter_fn,
     _gather_active,
+    _gather_routed,
+    _lease_plane_scatter_fn,
+    _merge_routed,
     _node_view,
     _py_active_window,
     _py_decay_scatter,
@@ -123,6 +135,12 @@ _m_led = REGISTRY.gauge("raft_groups_led", "Groups this node currently leads")
 _m_backlog_dropped = REGISTRY.counter(
     "raft_batch_backlog_dropped_total",
     "Consensus batch entries dropped by the per-src intake backlog cap")
+_m_routed = REGISTRY.counter(
+    "raft_msgs_routed_total",
+    "Consensus messages delivered device-resident via the RouteFabric "
+    "(never host-decoded). raft_msgs_out_total covers only host-path "
+    "sends; raft_msgs_in_total counts everything accepted into the inbox "
+    "— routed entries included, credited at the fabric flush")
 # Proposal→commit latency in DEVICE ticks (the protocol's clock), observed
 # leader-side when commit advancement covers a block this node minted.
 # Power-of-two buckets; p50/p99 via Histogram.quantile.
@@ -170,6 +188,15 @@ _m_kout = REGISTRY.gauge(
 _m_flight_seq = REGISTRY.gauge(
     "raft_flight_events_total",
     "Consensus flight-recorder events emitted (monotone past ring eviction)")
+_m_ring_occ = REGISTRY.gauge(
+    "raft_route_ring_occupancy",
+    "Blocks resident in this engine's device payload ring (route-servable "
+    "AppendEntries payloads; see raft_route_ring_spills_total for the "
+    "misses)")
+_m_lease_held = REGISTRY.gauge(
+    "raft_lease_holder",
+    "Groups whose tick-denominated leader lease this node currently holds "
+    "(leases=True; see raft_reads_leased_total for the reads they served)")
 
 # Kinds allowed into the device inbox — single source of truth for both the
 # single-message whitelist (receive) and the batch intake (_receive_batch).
@@ -210,8 +237,10 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         mesh=None,
         flight_ring: int = 4096,
         flight_wire: bool = False,
+        flight_ring_spill: bool = False,
         request_spans: bool = False,
         leases: bool = False,
+        flight_lease: bool = False,
         health: bool = False,
         device="cuda",
     ):
@@ -219,8 +248,6 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             raise ValueError(f"unknown engine backend {backend!r}")
         if mesh is not None:
             raise _not_ported("sharding the engine over a device mesh", "item 10")
-        if leases:
-            raise _not_ported("the leader-lease plane", "item 6, lease plane")
         self._device = resolve_device(device)
         self.kv = kv
         if self_id not in node_ids:
@@ -508,10 +535,52 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # decode / apply). NULL_PROFILER's phase() is a shared no-op
         # context manager; enable_profiling() swaps in a recording one.
         self.profiler = NULL_PROFILER
+        # Device-resident delivery (raft/route.py): a RouteFabric attaches
+        # itself here via register(); None = every message rides the host
+        # decode/encode path. Per-tick routed state lives between a
+        # consume (tick_begin) and the dispatch it merges into:
+        # _routed_plane is the device (9, P, N) inbox plane, _routed_kinds
+        # its host (P, N) kind mirror (occupancy / wake / stamps).
+        # _route_dirty tells peers this engine deferred inbox claims at
+        # its last begin — routing toward it would invert the
+        # deferred-beats-new slot precedence, so they hold off one tick.
+        self._fabric = None
+        self._route_dirty = False
+        self._routed_plane = None
+        self._routed_kinds: np.ndarray | None = None
+        self.routed_msgs = 0
+        self._c_routed = _m_routed.bind(node=self.self_id)
+        # Device payload ring (raft/payload_ring.py, attached via the
+        # fabric when RouteFabric(payload_ring=True)): _routed_blocks holds
+        # the ring-fed payload spans consume() handed this tick_begin (they
+        # seed the dispatch's staged-block dict, so the receiver's chain
+        # adoption walks them exactly like wire-decoded spans);
+        # _ring_stage_decode defers decode-time staging (capped catch-up
+        # reads) to the NEXT tick's stage batch — staging inside decode
+        # would run between this tick's route and its flush barrier, where
+        # a scatter could tear a slot the barrier's gather is about to
+        # read. flight_ring_spill gates the ring_spill journal event.
+        self._routed_blocks: dict[int, list] | None = None
+        self._ring_stage_decode: list[tuple[int, object]] = []
+        self._flight_ring_spill = bool(flight_ring_spill)
         # Request-scoped spans (default off): when on, propose() reads the
         # ambient trace context (utils/spans.py contextvar) and the
         # mint/commit/apply sites stamp the span's phase rungs.
         self._request_spans = bool(request_spans)
+        # Tick-denominated leader leases (raft/lease.py): host-derived from
+        # quorum-ack evidence the tick-finish fetches anyway, and
+        # observation-only with respect to the step (nothing in it reads
+        # lease state, so leases-on wire traffic equals leases-off).
+        # _lease_plane is the (P, 3) device mirror [holder, expiry, term],
+        # scatter-refreshed for changed rows; None until the first lease
+        # row changes.
+        self._flight_lease = bool(flight_lease)
+        self._lease: LeaseLane | None = None
+        self._lease_plane = None
+        if leases:
+            check_lease_params(self.params)
+            self._lease = LeaseLane(self.P, self.N, self.me, _tmin)
+        self._c_leased = m_reads_leased.bind(node=self.self_id)
         # Pipelined-tick state: the in-flight tick handle (tick_pipelined's
         # double buffer), the dispatch-in-flight flag (True from tick_begin
         # until the tick's device fetch materializes), and host-side
@@ -549,17 +618,6 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                        if health else None)
         REGISTRY.add_collect_hook(self, RaftEngine._publish_telemetry)
 
-    @property
-    def _fabric(self):
-        """Device-resident delivery between co-located engines: not ported,
-        so always None."""
-        return None
-
-    @_fabric.setter
-    def _fabric(self, fabric) -> None:
-        if fabric is not None:
-            raise _not_ported("registration with a RouteFabric", "item 7")
-
     def _flight_tick(self) -> int:
         """Journal tick stamp: the completing tick while a finish is in
         progress (see _flight_now), the last completed tick otherwise."""
@@ -575,6 +633,12 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             + sum(len(b) for b in self._pending_batches), node=node)
         _m_kout.set(self._k_out, node=node)
         _m_flight_seq.set(self.flight.seq, node=node)
+        if self._fabric is not None:
+            r = self._fabric.rings.get(self.me)
+            if r is not None:
+                _m_ring_occ.set(r.occupancy(), node=node)
+        if self._lease is not None:
+            _m_lease_held.set(self._lease.valid_count(), node=node)
         if self._active_set:
             _m_wake_frac.set(
                 round(self._last_wake_rows / max(1, self.P), 6), node=node)
@@ -659,6 +723,12 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             return
         if msg.kind in _PAROLE_DROP_KINDS and msg.group in self._parole:
             return  # on vote parole: abstain from elections (see _reset_group)
+        if (self._lease is not None and msg.kind == rpc.MSG_APPEND_RESP
+                and msg.ok):
+            # Lease evidence: an accepted-append ack drains the (group,
+            # src) ship queue (raft/lease.py) — pure host observation,
+            # the message still rides the inbox unchanged.
+            self._lease.credit(msg.group, msg.src, msg.x, msg.term)
         self._c_in.inc()
         self._pending_msgs.append(msg)
 
@@ -736,6 +806,11 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             for grp in bad:
                 b.blocks.pop(grp, None)
         if len(b):
+            if self._lease is not None:
+                am = (b.kind_col == rpc.MSG_APPEND_RESP) & (b.ok != 0)
+                if am.any():
+                    self._lease.credit_many(b.group[am], b.src, b.x[am],
+                                            b.term[am])
             self._c_in.inc(len(b))
             self._pending_batches.append(b)
             # Backlog cap per src: beyond 4 pending frames, the OLDEST from
@@ -883,6 +958,10 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         if self._prop_groups:
             wake[np.fromiter(self._prop_groups, np.intp,
                              len(self._prop_groups))] = True
+        if self._routed_kinds is not None:
+            # Device-routed inbox rows: pending IO exactly like a host
+            # message, just resident on the device already.
+            wake |= self._routed_kinds.any(axis=1)
         if self._force_active:
             fa = [g for g in self._force_active if 0 <= g < self.P]
             if fa:
@@ -932,7 +1011,8 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         python = self._backend == "python"
         if A == 0:
             # All-quiescent tick: decay IS the device step; nothing to
-            # gather, step, or fetch.
+            # gather, step, or fetch. (Routed rows are forced awake by the
+            # scheduler, so a pending routed plane implies A > 0.)
             with prof.phase("dispatch"):
                 if python:
                     new_state = _py_decay_scatter(self.params, self.state, pf,
@@ -943,9 +1023,13 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             return new_state, None, 0, 0
         idx = np.full(k, self.P, np.int64)
         idx[:A] = G
+        rp = self._routed_plane
         if python:
             with prof.phase("compact"):
                 state_c, member_c = _py_gather_active(self.state, self.member, idx)
+            if rp is not None:
+                # Scalar twin: the plane is numpy — merge on the host.
+                vals = _merge_routed(np, vals, _gather_routed(rp, idx))
             with prof.phase("dispatch"):
                 new_rows, flat = _py_active_window(
                     self.params, member_c, self._me_dev, state_c, vals, pf,
@@ -960,7 +1044,7 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             with prof.phase("dispatch"):
                 new_rows, flat = _active_window_fn(window)(
                     self.params, member_c, self._me_dev, state_c,
-                    host_to(vals, dev), pf_dev)
+                    host_to(vals, dev), pf_dev, rp, idx_dev)
             with prof.phase("scatter"):
                 new_state = _decay_scatter_fn(window)(
                     self.params, self.state, pf_dev, idx_dev, new_rows)
@@ -1037,8 +1121,28 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             # Last tick's AE-cap send-pointer re-roots, as one scatter just
             # before the step reads state.nxt (see _drain_nxt_fixups).
             self._drain_nxt_fixups()
+        if self._fabric is not None:
+            # Consume the device-routed inbox plane promoted at the
+            # driver's last delivery barrier: the kind mirror backs the
+            # wake predicate, the builders' occupancy deferral, and the
+            # per-(group, src) delivery stamp; the plane itself merges
+            # under the host residual inside the window step.
+            with prof.phase("route"):
+                (self._routed_plane, self._routed_kinds, rterms,
+                 self._routed_blocks) = self._fabric.consume(self.me)
+                if self._routed_kinds is not None:
+                    gi, si = np.nonzero(self._routed_kinds)
+                    self._h_last_seen[gi, si] = self._ticks
+                    if self._flight_wire and rterms is not None and len(gi):
+                        # Routed inbox consumption: the kind/term mirrors
+                        # the fabric maintains ARE the delivered rows.
+                        self.flight.emit_many(
+                            self._wire_tick, "msg_delivered", gi,
+                            rterms[gi, si], self._routed_kinds[gi, si],
+                            si, self.me, "routed")
         pf = self._peer_fresh(window)
         python = self._backend == "python"
+        rp = self._routed_plane
         G = None
         if self._active_set:
             # "compact" is entered twice per compacted tick: the predicate
@@ -1084,11 +1188,13 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                 if python:
                     new_state, flat, sv, ov = _py_sparse_window(
                         self._k_out, self.params, self.member, self._me_dev,
-                        self.state, pf, idx, vals, ticks=window)
+                        self.state, pf, idx, vals, ticks=window, routed=rp)
                 else:
+                    # The routed plane is dense-addressed: routed rows
+                    # never join the sparse upload.
                     new_state, flat, sv, ov = _sparse_window_fn(self._k_out, window)(
                         self.params, self.member, self._me_dev, self.state,
-                        host_to(pf, dev), host_to(idx, dev), host_to(vals, dev))
+                        host_to(pf, dev), host_to(idx, dev), host_to(vals, dev), rp)
             # sv/ov stay on the device; tick_finish fetches them only on a
             # compaction overflow.
             h = {"mode": "sparse", "sv": sv, "ov": ov, "k_out": self._k_out,
@@ -1116,15 +1222,29 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                     self._h_last_seen[in10[0] != rpc.MSG_NONE] = self._ticks
             with prof.phase("dispatch"):
                 if python:
+                    if rp is not None:
+                        # Scalar twin: the plane is numpy — merge on the
+                        # host (the same _merge_routed the torch step runs).
+                        in10 = _merge_routed(np, in10, rp)
                     new_state, flat = _py_packed_window(
                         self.params, self.member, self._me_dev, self.state,
                         in10, pf, ticks=window)
                 else:
                     new_state, flat = _window_step_fn(window)(
                         self.params, self.member, self._me_dev, self.state,
-                        host_to(in10, dev), host_to(pf, dev))
+                        host_to(in10, dev), host_to(pf, dev), rp)
             h = {"mode": "dense", "upload_bytes": int(in10.nbytes),
                  "fetch_bytes": flat.numel() * 4}
+        if self._routed_blocks:
+            # Ring-fed payload spans (consumed above): pre-staged blocks
+            # for exactly this dispatch — tick_finish's chain adoption
+            # walks them like wire-decoded spans, no host decode involved.
+            for g, blks in self._routed_blocks.items():
+                staged.setdefault(g, []).extend(blks)
+        self._routed_blocks = None
+        # The step's own output stays referenced: the route fabric scatters
+        # from it, on the device, in this tick's finish (route.py _src_ov).
+        h["dev_flat"] = flat
         ready = None
         if flat is not None and flat.is_cuda:
             # The tick's one device->host copy, started now into pinned
@@ -1136,6 +1256,13 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         self.state = new_state
         self._pending_msgs = deferred
         self._pending_batches = deferred_b
+        # Peers consult this before routing toward us: deferred carry-over
+        # claims slots FIRST at our next begin, and a routed row must never
+        # invert that precedence — so for one tick they use the host path.
+        self._route_dirty = bool(deferred or deferred_b)
+        # The routed plane is consumed by exactly this dispatch.
+        self._routed_plane = None
+        self._routed_kinds = None
         # Snapshot the proposal queues INTO the tick handle: the device was
         # told exactly these counts (inbox row 9), so tick_finish must mint
         # and resolve exactly these payloads. A proposal enqueued between
@@ -1375,6 +1502,14 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
 
         res = TickResult()
         reset_rows: set[int] = set()
+        # Payload-ring staging (fabric payload_ring on): every block this
+        # finish mints or adopts is collected here and staged into the
+        # sender ring in ONE batch just before the route phase — so the
+        # AEs the device emitted for these blocks (this tick or later)
+        # resolve as ring-resident and route on the device.
+        ring = (self._fabric.rings.get(self.me)
+                if self._fabric is not None else None)
+        ring_pend: dict[int, list] = {}
         # The device tick that just completed (self._ticks increments at the
         # END of this finish) — the stamp for journal events and the commit-
         # latency clock. Published via _flight_now so emits INSIDE this
@@ -1412,7 +1547,9 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                 res.became_leader.append(g)
                 self.flight.emit(t_now, "election_won", group=g,
                                  term=int(n_term[pos]), leader=self.me)
-                ch.append(int(n_term[pos]), b"")  # no-op liveness block
+                noop = ch.append(int(n_term[pos]), b"")  # no-op liveness block
+                if ring is not None:
+                    ring_pend.setdefault(g, []).append(noop)
                 if g == 0:
                     # A deposed leader's conf block may sit uncommitted in
                     # our log and commit later under us — re-arm the
@@ -1458,6 +1595,8 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                         except ValueError as e:
                             conf_err, payload = e, b""
                     blk = ch.append(int(n_term[pos]), payload)
+                    if ring is not None:
+                        ring_pend.setdefault(g, []).append(blk)
                     if span is not None:
                         # Queue phase closes at mint; the span rides the
                         # latency deque to the commit site.
@@ -1507,6 +1646,11 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                     cur = blk.parent
                 path.reverse()
                 ch.extend_many(path)
+                if ring is not None and path:
+                    # Adopted blocks stage too: a follower that later
+                    # leads (or relays catch-up) serves them from its own
+                    # ring instead of re-reading the chain.
+                    ring_pend.setdefault(g, []).extend(path)
                 if ch.head != new_head:
                     ch.force_head(new_head)
 
@@ -1641,8 +1785,50 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # ReplicaDiverged reset discards the blocks this tick's computed
         # AE-ack claims to hold.
         skip = self._recycled_this_tick | reset_rows
+        if self._lease is not None:
+            # Lease lane (raft/lease.py): record this tick's shipped AEs,
+            # recompute expiries off the post-adoption mirrors, settle
+            # read barriers. Observation-only — runs before the route/
+            # decode below but reads the SAME compact outbox they do.
+            self._lease_finish(proc, ov_c, skip, t_now)
+        if ring is not None and (self._ring_stage_decode or ring_pend):
+            # Stage this finish's minted/adopted blocks — plus the capped
+            # catch-up reads the LAST decode recorded (deferred one tick:
+            # staging inside decode would fall between a route and its
+            # flush barrier, where the scatter could tear a slot the
+            # barrier's gather still needs) — before the route decision
+            # below reads residency. Rows reset/recycled this tick stay
+            # out: their blocks belong to a dead incarnation.
+            with prof.phase("ring"):
+                if self._ring_stage_decode:
+                    pend, self._ring_stage_decode = self._ring_stage_decode, []
+                    for g, blk in pend:
+                        if g not in skip:
+                            ring.stage(g, int(self._h_ginc[g]), (blk,))
+                for g, blks in ring_pend.items():
+                    if g not in skip:
+                        ring.stage(g, int(self._h_ginc[g]), blks)
+        routed_mask = None
+        routed_dsts: set[int] = set()
+        if self._fabric is not None and len(proc):
+            # Device-resident delivery: payload-free rows toward clean
+            # on-fabric peers scatter straight into their staged inbox
+            # planes (the scatter source is the step's device output —
+            # never the host copy) and are masked out of the host decode
+            # below. The residual the decode emits is exactly the
+            # payload-bearing / off-fabric share.
+            with prof.phase("route"):
+                routed_mask = self._fabric.route_from(
+                    self, proc, ov_c, h, skip=skip or None)
+            if routed_mask is not None:
+                n_routed = int(routed_mask.sum())
+                self.routed_msgs += n_routed
+                self._c_routed.inc(n_routed)
+                routed_dsts = set(
+                    np.nonzero(routed_mask.any(axis=0))[0].tolist())
         with prof.phase("decode"):
-            res.outbound = self._decode_outbox(ov_c, proc, skip=skip or None)
+            res.outbound = self._decode_outbox(ov_c, proc, skip=skip or None,
+                                               routed=routed_mask)
         if self._snap_acks:
             # Snapshot-transfer acks queued by receive() ride this tick's
             # outbound.
@@ -1652,8 +1838,11 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             # Aggregate keepalive, emitted by the ENGINE so it works under
             # any driver loop: every active peer that got no frame this
             # tick gets a MSG_PING, keeping its peer_fresh entry for this
-            # node warm.
-            sent_to = {m.dst for m in res.outbound}
+            # node warm. Device-routed frames ARE this tick's traffic to
+            # their peers (they feed peer_fresh via the fabric flush), so
+            # those slots need no ping — and emitting one would make routed
+            # runs diverge on the wire from host-decoded ones.
+            sent_to = {m.dst for m in res.outbound} | routed_dsts
             for slot in self.members.active_slots():
                 if slot != self.me and slot not in sent_to:
                     res.outbound.append(rpc.WireMsg(
@@ -1709,6 +1898,172 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
 
     def term(self, group: int = 0) -> int:
         return int(self._h_term[group])
+
+    # ------------------------------------------------------------- leases
+
+    def _lease_finish(self, proc, ov_c, skip, t_now: int) -> None:
+        """Per-tick lease maintenance (tick_finish, post mirror adoption):
+        resync armed terms with the role/term mirrors, push this tick's
+        shipped AppendEntries onto the evidence queues (pre-cap send tops
+        from the compact outbox — the composition matches _decode_outbox
+        bit for bit, so acks match their ships exactly), recompute every
+        led row's expiry, settle read barriers, journal transitions, and
+        refresh the device mirror plane for changed rows."""
+        lane = self._lease
+        lead = self._h_role == LEADER
+        lane.resync(lead, self._h_term)
+        if len(proc):
+            ae = ov_c[0] == rpc.MSG_APPEND
+            if ae.any():
+                gids = np.asarray(proc, np.int64)
+                if skip:
+                    smask = np.isin(gids, np.fromiter(skip, np.int64,
+                                                      len(skip)))
+                    if smask.any():
+                        ae = ae & ~smask[:, None]
+                ae[:, self.me] = False
+                rows, dsts = np.nonzero(ae)
+                if len(rows):
+                    i64 = np.int64
+                    y64 = ((ov_c[4][rows, dsts].astype(i64) << 32)
+                           | ov_c[5][rows, dsts].astype(i64))
+                    lane.record(gids[rows], dsts, y64, t_now)
+        ev = lane.recompute(t_now, lead, self._h_term, self._mask_np)
+        lane.resolve_waiters(lead, self._h_term, self._mask_np)
+        if self._flight_lease:
+            fl = self.flight
+            for g in ev["acquired"].tolist():
+                fl.emit(t_now, "lease_acquired", group=g,
+                        term=int(lane.ev_term[g]), leader=self.me,
+                        expiry=int(lane.expiry[g]))
+            for g in ev["renewed"].tolist():
+                fl.emit(t_now, "lease_renewed", group=g,
+                        term=int(lane.ev_term[g]), leader=self.me,
+                        expiry=int(lane.expiry[g]))
+            for g in ev["expired"].tolist():
+                fl.emit(t_now, "lease_expired", group=g,
+                        term=int(self._h_term[g]),
+                        leader=int(self._h_leader[g]))
+        if len(ev["changed"]):
+            self._lease_plane_update(ev["changed"], ev["plane_vals"])
+
+    def _lease_plane_update(self, rows: np.ndarray, vals: np.ndarray) -> None:
+        """Refresh the (P, 3) device lease mirror [holder, expiry, term]
+        for changed rows. Observation-only: nothing in the step reads it —
+        it exists so device-side consumers can check lease occupancy
+        without a host round trip. The python backend keeps the host array
+        itself as the plane. The first refresh uploads the whole mirror;
+        later ones scatter the changed rows, in place (no dispatch reads
+        this plane)."""
+        lane = self._lease
+        if self._backend == "python":
+            self._lease_plane = lane.plane_np
+        elif self._lease_plane is None:
+            self._lease_plane = host_to(lane.plane_np, self._device)
+        else:
+            _lease_plane_scatter_fn(self._lease_plane,
+                                    host_to(np.asarray(rows, np.int64), self._device),
+                                    host_to(np.asarray(vals, np.int64), self._device))
+
+    def lease_valid(self, group: int) -> bool:
+        """True iff this node may serve ``group``'s reads leader-local
+        right now: the row leads at its armed term, the lease tick has
+        not expired, and the group is not frozen for migration. Any
+        in-step step-down lands in the role mirror within the same
+        tick_finish, so this gate can never outlive a deposition."""
+        lane = self._lease
+        if lane is None or not self.has_group(group):
+            return False
+        return (bool(lane.valid[group])
+                and self._h_role[group] == LEADER
+                and lane.ev_term[group] == self._h_term[group]
+                and self._ticks < lane.expiry[group]
+                and group not in self._frozen_groups)
+
+    def lease_expiry(self, group: int) -> int | None:
+        """The group's lease expiry tick (exclusive), or None when no
+        lease is held."""
+        if not self.lease_valid(group):
+            return None
+        return int(self._lease.expiry[group])
+
+    def lease_serve(self, group: int) -> tuple[bool, str]:
+        """Gate a leader-local read: (True, "ok") when the lease covers
+        it (counted in raft_reads_leased_total), else (False, reason)
+        with reason in off / frozen / not_leader / expired (counted in
+        raft_reads_fallback_total{reason}; journaled as lease_refused
+        under flight_lease). Callers fall back to read_barrier() or
+        surface a retryable NotLeader."""
+        lane = self._lease
+        if lane is None or not self.has_group(group):
+            reason = "off"
+        elif group in self._frozen_groups:
+            reason = "frozen"
+        elif not (self._h_role[group] == LEADER
+                  and lane.ev_term[group] == self._h_term[group]):
+            reason = "not_leader"
+        elif not (lane.valid[group]
+                  and self._ticks < lane.expiry[group]):
+            reason = "expired"
+        else:
+            self._c_leased.inc()
+            return True, "ok"
+        m_reads_fallback.inc(node=self.self_id, reason=reason)
+        if lane is not None and self._flight_lease:
+            self.flight.emit(self._ticks, "lease_refused",
+                             group=int(group) if self.has_group(group)
+                             else -1,
+                             term=self.term(group)
+                             if self.has_group(group) else -1,
+                             reason=reason)
+        return False, reason
+
+    def read_barrier(self, group: int) -> asyncio.Future:
+        """ReadIndex-style read fence, the consensus fallback for the
+        lease fast path: resolves True once a full quorum of peers has
+        acked AppendEntries shipped at or after the call tick — proving
+        this node was still the leader when the read arrived — and False
+        (the caller surfaces a retryable NotLeader) the moment the row
+        stops leading at its armed term. Appends NOTHING to the log, so
+        the write plane is identical whichever read mode runs.
+
+        Trace context: a bound RequestSpan gets the barrier wait as its
+        consensus phase (minted at submit, committed+applied at quorum)."""
+        fut = asyncio.get_running_loop().create_future()
+        lane = self._lease
+        g = int(group)
+        span = current_span() if self._request_spans else None
+        if span is not None:
+            span.mark("minted", self._ticks)
+
+            def _close(f, span=span):
+                t = self._ticks
+                span.mark("committed", t)
+                span.mark("applied", t)
+            fut.add_done_callback(_close)
+        if (lane is None or not self.has_group(g)
+                or self._h_role[g] != LEADER
+                or lane.ev_term[g] != self._h_term[g]):
+            fut.set_result(False)
+            return fut
+        if int(self._mask_np[g].sum()) // 2 == 0:
+            fut.set_result(True)  # self-quorum: the local read is exact
+            return fut
+        lane.add_waiter(g, self._ticks, fut)
+        return fut
+
+    def _lease_invalidate(self, group: int) -> None:
+        """Drop a row's lease state (reset / recycle / membership
+        change). The serve gate's role check already refuses instantly —
+        this clears evidence and queues so nothing from the old
+        incarnation or member set ever credits the next."""
+        lane = getattr(self, "_lease", None)
+        if lane is not None:
+            lane.reset_rows(np.asarray([group], np.int64))
+
+    def lease_summary(self) -> dict | None:
+        """Lane telemetry for bench rows (None when leases are off)."""
+        return None if self._lease is None else self._lease.summary()
 
     def in_sync_map(self, groups, max_lag: int = 64,
                     liveness_ticks: int = 30) -> dict[int, set[int]]:

@@ -4,9 +4,8 @@ Mixin half of :class:`josefine_tpu_torch.raft.engine.RaftEngine` (state is
 initialized there; these methods own the membership mask, per-group claim
 sets, group reset/recycle, conf-change application, and the vote-parole
 safety mechanism). The port of the JAX package's ``raft/group_admin.py``:
-the host logic is the same; the device-row writes build new leaves
-(:func:`set_row`) instead of writing the live state, and the route-fabric,
-payload-ring and lease hooks are not ported yet.
+the host logic is the same, and the device-row writes build new leaves
+(:func:`set_row`) instead of writing the live state.
 
 The node-axis columns are pre-allocated slots a cluster can grow into
 (runtime ADD/REMOVE via replicated conf blocks), and the P axis hosts
@@ -101,6 +100,10 @@ class GroupAdmin:
         # Incremental: rewrite only row g of the host mask, re-upload.
         self._mask_np[g] = self._claim_row(g, self._active_vec())
         self.member = self._place_member(self._mask_np)
+        # A claim change moves the row's quorum arithmetic: lease
+        # evidence earned against the old member set must not carry over
+        # (raft/lease.py — the n_need intersection bound assumed it).
+        self._lease_invalidate(g)
         # A claim change moves quorum/membership for the row — wake it so
         # the full step (not the decay closed form) sees the new mask.
         # (Dense engines never drain _force_active, so only track it when
@@ -138,6 +141,12 @@ class GroupAdmin:
         # stamp isolates stale frames instead.
         self._reset_group(g, parole=False)
         self._lift_parole(g)
+        # The dead incarnation's lease evidence and queued ships must not
+        # survive into the new topic's life: the serve gate already refuses
+        # (the role mirror is demoted above), but a straggler ack arriving
+        # before the next tick_finish resync would otherwise still credit
+        # the old queues.
+        self._lease_invalidate(g)
         self._h_last_seen[g] = 0
         # Queued-but-unminted proposals belong to the dead incarnation:
         # fail their futures (NotLeader — the client re-routes/retries)
@@ -157,6 +166,11 @@ class GroupAdmin:
         self._pending_batches = [
             pb for pb in (b.take(b.group != g) for b in self._pending_batches)
             if len(pb)]
+        if self._fabric is not None:
+            # Device-routed traffic staged/ready for the dead incarnation
+            # is "already admitted" exactly like the queues above — purge
+            # its slots from the routing planes too.
+            self._fabric.purge_group(self.me, g)
         self._recycled_this_tick.add(g)
         self.flight.emit(self._flight_tick(), "group_recycled", group=g,
                          inc=int(self._h_ginc[g]))
@@ -255,8 +269,8 @@ class GroupAdmin:
 
     def migrate_purge_source(self, g: int, inc: int) -> None:
         """Cutover purge of the SOURCE row: exactly a recycle (chain to
-        genesis, pending queues and pipelined dispatches all purged — see
-        recycle_group) under the new incarnation so the
+        genesis, pending queues, route/ring planes, pipelined dispatches
+        all purged — see recycle_group) under the new incarnation so the
         dead owner's in-flight traffic is dropped at intake; the freeze
         dies with the row (the dual-ownership window is over) and the
         freed row is the caller's new spare."""
@@ -380,6 +394,10 @@ class GroupAdmin:
                              & np.isin(b.kind_col, _PAROLE_DROP_ARR)))
                     for b in self._pending_batches)
                 if len(pb)]
+            if self._fabric is not None:
+                # Already-routed election requests must not reach the
+                # emptied row either (same rule as the queue purge above).
+                self._fabric.purge_group(self.me, g, kinds=_PAROLE_DROP_KINDS)
             _m_paroled.set(len(self._parole), node=self.self_id)
             log.warning("g=%d entering vote parole until head >= %#x",
                         g, old_head)
@@ -398,6 +416,17 @@ class GroupAdmin:
             # the reset — the reset zeroes the row's nxt below, and a later
             # _drain_nxt_fixups scatter must not resurrect the old pointer.
             self._nxt_fixups = [f for f in self._nxt_fixups if f[0] != g]
+        if self._ring_stage_decode:
+            # Deferred payload-ring stages for this row describe blocks the
+            # reset just discarded — they must never become resident.
+            self._ring_stage_decode = [
+                p for p in self._ring_stage_decode if p[0] != g]
+        if self._fabric is not None:
+            ring = self._fabric.rings.get(self.me)
+            if ring is not None:
+                # The sender-side ring row too: its resident payloads are
+                # the discarded chain's blocks.
+                ring.purge(g)
         if self._pipeline_h is not None:
             # A dispatch is in flight (pipelined driver): its fetched
             # values for this row were computed from pre-reset state —
@@ -412,6 +441,10 @@ class GroupAdmin:
         self._h_commit[g] = GENESIS
         self._h_role[g] = 0
         self._h_leader[g] = -1
+        # Any held lease dies with the row (the serve gate's role check
+        # already refuses from this line on; this drops the evidence so
+        # the successor incarnation re-earns it from its own acks).
+        self._lease_invalidate(g)
         # Timer mirrors follow the device-row demotion below (elapsed and
         # hb_elapsed zeroed; timeout keeps its old draw), and the recycled
         # row is forced into the next active set — its next step must run
@@ -498,6 +531,12 @@ class GroupAdmin:
             return
         self.node_ids = [self.members.id_of(s) for s in range(self.N)]
         self.member = self._member_mask()
+        # Cluster membership moved: EVERY row's quorum arithmetic is
+        # rebuilt from the new mask, so all lease evidence is suspect —
+        # disarm the whole lane and re-earn it (raft/lease.py).
+        lane = getattr(self, "_lease", None)
+        if lane is not None:
+            lane.reset_all()
         if self.on_conf_applied is not None:
             # App-layer hook (wired by the node, like the partition hooks):
             # e.g. pruning row-drain entries pinned to a removed broker.

@@ -10,10 +10,9 @@ MsgBatches, attaching chain payload spans to AppendEntries (with
 max_append_entries flow control) and snapshot messages where the span bottom
 fell below the truncation floor.
 
-The port of the JAX package's ``raft/hostio.py`` without the device-routing
-masks (ROADMAP Queue 1 item 7). The host code is the same; the one device
-write, the send-pointer fixup scatter, builds new tensors instead of
-writing the live state.
+The port of the JAX package's ``raft/hostio.py``. The host code is the
+same; the one device write, the send-pointer fixup scatter, builds new
+tensors instead of writing the live state.
 
 Per-peer bounded send queue with carry-over: one message per (group, src)
 slot per tick; extras carry over to the next tick instead of being dropped.
@@ -60,12 +59,20 @@ class HostIO:
         staged: dict[int, list] = {}
         deferred: list[rpc.WireMsg] = []
         deferred_b: list[rpc.MsgBatch] = []
+        # Routed occupancy: slots already claimed by the device-resident
+        # routing plane this tick (raft/route.py). A colliding host claim
+        # defers exactly like a host-built slot conflict — the routed row
+        # merges under the residual inbox on the device, and no later host
+        # writer overwrites it.
+        occ = self._routed_kinds
         # Columnar batches first (the product hot path): nine vectorized
         # scatters per peer frame; slot conflicts split the batch and carry
         # the remainder to the next tick.
         for b in self._pending_batches:
             g, src = b.group, b.src
             free = in10[0, g, src] == 0
+            if occ is not None:
+                free &= occ[g, src] == 0
             if not free.all():
                 deferred_b.append(b.take(~free))
                 b = b.take(free)
@@ -93,7 +100,8 @@ class HostIO:
         seen: set[tuple[int, int]] = set()
         for m in msgs:
             key = (m.group, m.src)
-            if key in seen or in10[0, m.group, m.src] != rpc.MSG_NONE:
+            if (key in seen or in10[0, m.group, m.src] != rpc.MSG_NONE
+                    or (occ is not None and occ[m.group, m.src])):
                 deferred.append(m)
                 continue
             seen.add(key)
@@ -173,9 +181,14 @@ class HostIO:
         staged: dict[int, list] = {}
         deferred: list[rpc.WireMsg] = []
         deferred_b: list[rpc.MsgBatch] = []
+        # Routed occupancy: same deferral rule as the dense builder, keyed
+        # by GLOBAL group ids.
+        occ = self._routed_kinds
         for b in self._pending_batches:
             rows = np.searchsorted(G, b.group)
             free = vals[0, rows, b.src] == 0
+            if occ is not None:
+                free &= occ[b.group, b.src] == 0
             if not free.all():
                 deferred_b.append(b.take(~free))
                 b = b.take(free)
@@ -201,7 +214,8 @@ class HostIO:
             for m in msgs:
                 row = int(np.searchsorted(G, m.group))
                 key = (m.group, m.src)
-                if key in seen or vals[0, row, m.src] != rpc.MSG_NONE:
+                if (key in seen or vals[0, row, m.src] != rpc.MSG_NONE
+                        or (occ is not None and occ[m.group, m.src])):
                     deferred.append(m)
                     continue
                 seen.add(key)
@@ -252,7 +266,8 @@ class HostIO:
         plane[rows, 0] = np.fromiter(
             (len(self._proposals[g]) for g in groups), np.int32, len(groups))
 
-    def _decode_outbox(self, ov, groups, skip: set[int] | None = None) -> list:
+    def _decode_outbox(self, ov, groups, skip: set[int] | None = None,
+                       routed: np.ndarray | None = None) -> list:
         """Decode the packed outbox into ONE columnar MsgBatch per peer (plus
         any InstallSnapshot WireMsgs). The batch IS the wire form: per-tick
         consensus traffic to a peer is a single binary frame end to end.
@@ -266,16 +281,27 @@ class HostIO:
         group, and send-pointer fixups recorded for the next tick_begin's
         single scatter (``_drain_nxt_fixups``) instead of a device write
         here, which would race the in-flight dispatch under
-        ``tick_pipelined``."""
+        ``tick_pipelined``.
+
+        ``routed`` is the device-routing mask (same (R, N) shape as the
+        outbox cells): rows the RouteFabric already delivered on the device
+        this tick. They are masked out BEFORE the nonzero pass, so routed
+        traffic is never re-materialized host-side — the residual this
+        decoder emits is exactly the payload-bearing / off-fabric share."""
         kind = ov[0]
+        copied = False
         if skip:
             smask = np.isin(np.asarray(groups),
                             np.fromiter(skip, np.int64, len(skip)))
             if smask.any():
                 # Mid-tick-recycled rows: their outbox was computed by the
                 # dead incarnation but would be stamped with the new one.
-                kind = kind.copy()
+                kind, copied = kind.copy(), True
                 kind[smask] = 0
+        if routed is not None and routed.any():
+            if not copied:
+                kind = kind.copy()
+            kind[routed] = 0
         ri, di = np.nonzero(kind)
         if not len(ri):
             return []
@@ -291,7 +317,8 @@ class HostIO:
         inc_all = self._h_ginc[g_all]
         if self._flight_wire:
             # Wire trace (raft.flight_wire): every decoded entry is a
-            # msg_sent on the host path.
+            # msg_sent on the host path (routed rows were masked out above,
+            # so the journal's routed/host split is the delivery split).
             self.flight.emit_many(self._flight_tick(), "msg_sent",
                                   g_all, t_all, k_all, self.me, di, "host")
 
@@ -304,6 +331,17 @@ class HostIO:
         ae = np.nonzero((k_all == rpc.MSG_APPEND) & (y_all != x_all))[0]
         if len(ae):
             cap = self.max_append_entries
+            # Payload-ring re-stage: blocks a capped catch-up frame just
+            # read from the chain are worth ring residency — the SAME span
+            # is re-sent next tick under tick_pipelined (the fixup lands one
+            # dispatch late), and the follow-on catch-up frames walk the
+            # suffix right above it; resident, those route on the device.
+            # Deferred one tick via _ring_stage_decode: staging here would
+            # fall between this tick's route and its flush barrier, where a
+            # scatter could tear a slot the barrier's gather is about to
+            # read.
+            ring = (self._fabric.rings.get(self.me)
+                    if self._fabric is not None else None)
             order = ae[np.argsort(g_all[ae], kind="stable")]
             edges = np.nonzero(np.diff(g_all[order]))[0] + 1
             for run in np.split(order, edges):
@@ -360,6 +398,12 @@ class HostIO:
                         y_all[i] = top
                         z_all[i] = min(int(z_all[i]), top)
                         self._nxt_fixups.append((grp, int(di[i]), top))
+                        if ring is not None and len(blks) <= ring.S:
+                            # Fits the per-group ring: next tick's re-send
+                            # of this exact span routes on the device
+                            # (stage() dedups already-resident ids).
+                            self._ring_stage_decode.extend(
+                                (grp, b) for b in blks)
                     blocks_by_dst.setdefault(int(di[i]), {})[grp] = blks
 
         out: list = []

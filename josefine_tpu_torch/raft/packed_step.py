@@ -28,8 +28,12 @@ empty inbox, and the outbox is merged last-writer-wins per (group, dst)
 slot with replies and span-carrying AEs frozen (see :func:`_merge_outbox`).
 The single-tick step IS the window of length 1.
 
-This is the JAX package's ``raft/packed_step.py`` without its routed and
-lease-plane programs (ROADMAP Queue 1 items 6 and 7). Where JAX drops an
+Each window step takes an optional routed inbox plane (9, P, N), merged
+under the host-built inbox (:func:`_merge_routed`); the plane programs of
+the route fabric, the payload ring and the lease plane follow the window
+steps.
+
+This is the JAX package's ``raft/packed_step.py``. Where JAX drops an
 out-of-range scatter index (``mode="drop"``) or clamps a gather, the port
 sends the index to a dump row that is sliced off, or clamps it: an
 out-of-range index never reaches a torch kernel, and no program here makes
@@ -172,7 +176,9 @@ def _window_step_fn(ticks: int):
     Reads its inputs and never writes them: the engine's state leaves may
     still be referenced by an in-flight pipelined finish."""
 
-    def fn(params, member, me, state, in10, peer_fresh):
+    def fn(params, member, me, state, in10, peer_fresh, plane=None):
+        if plane is not None:
+            in10 = _merge_routed(torch, in10, plane)
         inbox = _msgs_from_packed(in10)
         props = in10[9, :, 0]
         st, out, met = _step_node(params, member, me, state, inbox, props,
@@ -277,13 +283,16 @@ def _sparse_window_fn(k_out: int, ticks: int):
     """Sparse-IO window (ticks=1 == the sparse packed step). ``idx`` (K,)
     are the touched group rows, padded with P; ``vals`` their (10, K, N)
     packed inbox rows. The scatter writes a fresh (10, P + 1, N) buffer
-    whose last row takes the padding."""
+    whose last row takes the padding. A routed ``plane`` is dense-addressed,
+    so routed rows never join the upload."""
 
-    def fn(params, member, me, state, peer_fresh, idx, vals):
+    def fn(params, member, me, state, peer_fresh, idx, vals, plane=None):
         P, N = member.shape
         in10 = torch.zeros((10, P + 1, N), dtype=_I32, device=member.device)
         in10[:, idx.long(), :] = vals
         in10 = in10[:, :P]
+        if plane is not None:
+            in10 = _merge_routed(torch, in10, plane)
         inbox = _msgs_from_packed(in10)
         props = in10[9, :, 0]
         st, out, met = _step_node(params, member, me, state, inbox, props,
@@ -297,19 +306,124 @@ def _sparse_window_fn(k_out: int, ticks: int):
 
 
 def _py_sparse_window(k_out, params, member, me, state, peer_fresh, idx, vals,
-                      ticks):
+                      ticks, routed=None):
     """Scalar-engine twin of the sparse window (ticks=1 == sparse step).
-    ``peer_fresh``, ``idx`` and ``vals`` are numpy arrays."""
+    ``peer_fresh``, ``idx``, ``vals`` and the routed plane ``routed`` are
+    numpy arrays (the python backend's fabric scatters on the host)."""
     P, N = member.shape
     in10 = np.zeros((10, P, N), np.int32)
     idx = np.asarray(idx)
     sel = idx < P
     in10[:, idx[sel], :] = np.asarray(vals)[:, sel, :]
+    if routed is not None:
+        in10 = _merge_routed(np, in10, routed)
     st, out, met = _py_window(params, member, me, state,
                               _msgs_from_packed(in10), in10[9, :, 0],
                               peer_fresh, ticks)
     flat, sv, ov = _sparse_outputs(state, st, out, met, k_out)
     return st, flat, sv, ov
+
+
+# Device-resident delivery between co-located engines (the in-process
+# cluster: one device, one engine per node slot). The sender's outbox row
+# (nine fields) IS the receiver's inbox row, so the RouteFabric
+# (raft/route.py) scatters payload-free rows straight from the sender's
+# device step output into the receiver's staged (9, P, N) inbox plane, and
+# the receiver's next dispatch merges the plane under its host-built
+# residual inbox (the ``plane`` argument of the window steps). A routed slot
+# wins its (group, src) cell: the host builders defer any colliding claim.
+# Row 9 (proposal counts) is host-only. The payload ring (raft/payload_ring
+# .py) is each sender's bounded (P, S, W) int32 buffer of recent block
+# payloads, written at the fabric's flush barrier and read there once per
+# routed span set. The lease plane is a (P, 3) int64 mirror that no step
+# reads.
+#
+# The JAX programs pad their index vectors to a bucket ladder
+# (``route_bucket``, ``ring_bucket``) so that XLA compiles a bounded number
+# of shapes, and drop the padding ids. Eager torch compiles nothing, so the
+# port uploads exactly the rows it writes: every index is in range. Each
+# scatter's indices are unique (one row per group per sender and receiver,
+# the ring's last-writer dedup, changed lease rows): a scatter with repeated
+# indices has no defined winner on the card. These programs write in place,
+# only into planes and buffers that no dispatch has read yet (see route.py).
+# Every one takes numpy arrays as well, for the python backend.
+
+
+def _merge_routed(xp, in10, plane):
+    """Overlay a routed inbox plane (9, ..., N) under a host-built packed
+    input (10, ..., N): routed-claimed slots take the routed row, every
+    other slot keeps the host value, proposal row 9 is host-only. ``xp`` is
+    ``torch`` or ``numpy``."""
+    merged = xp.where(plane[0:1] != 0, plane, in10[:9])
+    return xp.concatenate([merged, in10[9:10]], axis=0)
+
+
+def _gather_routed(plane, idx):
+    """Compact a dense routed plane onto the active-set bucket rows:
+    padding entries (id P) clamp for the gather and are masked to zero, so
+    a padding row never steps a phantom copy of row P-1's inbox."""
+    P = plane.shape[1]
+    rows = plane[:, idx.clip(max=P - 1), :]
+    return rows * (idx < P)[None, :, None]
+
+
+def _route_scatter(plane, src_ov, srows, gids, dst: int, me: int):
+    """``plane[:, gids, me] = src_ov[:, srows, dst]`` in place: routed
+    outbox rows of one sender toward one receiver, device to device.
+    ``src_ov`` is the sender's (9, R, N) step outbox (dense, sparse or
+    active-compact), ``srows`` its rows, ``gids`` the groups (unique),
+    ``dst`` the receiver's outbox column and ``me`` the sender's inbox
+    column in the receiver's plane."""
+    plane[:, gids, me] = src_ov[:, srows, dst]
+    return plane
+
+
+def _route_scatter_vals(plane, vals, gids, me: int):
+    """``plane[:, gids, me] = vals`` in place, for host-built (9, k) rows:
+    AppendEntries capped at ``max_append_entries``, whose y/z carry the
+    capped top instead of the device outbox's claim."""
+    plane[:, gids, me] = vals
+    return plane
+
+
+def _merge_planes_fn(ready, staging):
+    """First-writer-wins overlay of a not-yet-consumed ready plane over a
+    newly staged one (two flushes without a consuming tick_begin): the
+    earlier claim keeps its slot, the later one is dropped (message loss in
+    FIFO order, which Raft tolerates)."""
+    return torch.where(ready[0:1] != 0, ready, staging)
+
+
+def _purge_plane_row_fn(plane, g: int, cols):
+    """Zero group ``g``'s routed slots in the source columns ``cols``, in
+    place: the device half of the host's pending-queue purge on group reset
+    or recycle (route.py keeps the kind mirror in lockstep)."""
+    plane[:, g, cols] = 0
+    return plane
+
+
+def _ring_scatter(buf, gids, slots, words):
+    """Write staged block payloads into a sender's (P, S, W) payload ring in
+    place: ``words`` (n, W) into slot ``slots`` of group ``gids``, every
+    (group, slot) pair unique."""
+    buf[gids, slots] = words
+    return buf
+
+
+def _ring_gather(buf, gids, slots):
+    """Read the (n, W) payload words of a routed span set out of a sender's
+    payload ring."""
+    return buf[gids, slots]
+
+
+def _lease_plane_scatter_fn(plane, idx, vals):
+    """Refresh changed rows of the (P, 3) device lease mirror [holder,
+    expiry tick, granted term] (raft/lease.py) in place: ``idx`` the
+    changed rows (unique), ``vals`` their (n, 3) int64 values. No step
+    reads this plane, which keeps leases-on step programs identical to
+    leases-off."""
+    plane[idx] = vals
+    return plane
 
 
 # Active-set stepping. Sparse IO shrinks the transfers but still steps all
@@ -413,9 +527,14 @@ def _gather_active(state: NodeState, member: torch.Tensor, idx: torch.Tensor):
 def _active_window_fn(ticks: int):
     """Compact-domain window step: the SAME tick-1 + quiet-ticks pipeline
     as _window_step_fn, over the gathered (A, ...) rows, returning the
-    13-row mirror + outbox flat."""
+    13-row mirror + outbox flat. A routed ``plane`` is gathered onto the
+    bucket rows ``idx`` and merged under the compact inbox (the scheduler
+    wakes every routed row, so the gather loses no routed slot)."""
 
-    def fn(params, member_c, me, state_c, in10_c, peer_fresh):
+    def fn(params, member_c, me, state_c, in10_c, peer_fresh, plane=None,
+           idx=None):
+        if plane is not None:
+            in10_c = _merge_routed(torch, in10_c, _gather_routed(plane, idx))
         inbox = _msgs_from_packed(in10_c)
         props = in10_c[9, :, 0]
         st, out, met = _step_node(params, member_c, me, state_c, inbox,

@@ -1,6 +1,6 @@
 """The tick-loop instruction count behind ``chip_smoke.py``'s kernel bound,
-on a small hand-written SASS listing in ``cuobjdump`` format; and phase 6a's
-twin run rehearsed on the host."""
+on a small hand-written SASS listing in ``cuobjdump`` format; and phases 6a
+and 7a rehearsed on the host."""
 
 import types
 
@@ -75,3 +75,13 @@ def test_scale_parity_runs_on_the_host(capsys):
     chip_smoke.engine_parity_scale(torch.device("cpu"), P=256, ticks=60)
     out = capsys.readouterr().out
     assert out.count("scale parity ok") == 2 and "refetches" in out
+
+
+def test_route_parity_runs_on_the_host(capsys):
+    """Phase 7a with every side on the host at a tiny size: the fabric runs
+    compare every tick (exact, routed == host-only, leases on == off on the
+    wire) and their gates hold (rows routed, payload AEs from the ring, the
+    scatter source checked, lease credits)."""
+    chip_smoke.route_parity(torch.device("cpu"), P_dense=32, P_scale=64, ticks=50)
+    out = capsys.readouterr().out
+    assert out.count("route parity ok") == 3 and "host-only" in out

@@ -17,7 +17,7 @@ MODULES = [
     "utils/tracing.py", "utils/kv.py", "utils/metrics.py", "utils/profiling.py",
     "utils/flight.py", "utils/spans.py", "utils/health.py",
     "raft/membership.py", "raft/chain.py", "raft/rpc.py", "raft/fsm.py",
-    "raft/result.py", "raft/migration.py",
+    "raft/result.py", "raft/migration.py", "raft/lease.py",
 ]
 # Deliberate differences between a copy and its original, by module, with
 # the reason. There are none.

@@ -32,6 +32,7 @@ from josefine_tpu.utils.kv import MemKV as JaxKV
 from josefine_tpu_torch import bench_engine, interop
 from josefine_tpu_torch.models.types import step_params
 from josefine_tpu_torch.raft.engine import RaftEngine
+from josefine_tpu_torch.raft.route import RouteFabric
 from josefine_tpu_torch.utils.kv import MemKV
 
 from torch_parity import STATE_NAMES, assert_leaves_equal
@@ -74,18 +75,22 @@ class Twin:
     """Three JAX engines and three port engines, stepped and fed alike."""
 
     def __init__(self, groups=8, hb_ticks=8, port_backend="torch", snap_groups=(),
-                 sparse_io=False, k_out=None, fallback_frac=None, **engine_kw):
+                 sparse_io=False, k_out=None, fallback_frac=None, timeouts=(3, 8),
+                 jax_kw=None, port_kw=None, **engine_kw):
+        """``engine_kw`` goes to every engine, ``jax_kw`` / ``port_kw`` to
+        one side only."""
         fsm = lambda g: SnapFsm() if g in snap_groups else ListFsm()
         self.jfsms = [{g: fsm(g) for g in range(2)} for _ in IDS]
         self.tfsms = [{g: fsm(g) for g in range(2)} for _ in IDS]
-        kw = dict(timeout_min=3, timeout_max=8, hb_ticks=hb_ticks)
+        kw = dict(timeout_min=timeouts[0], timeout_max=timeouts[1], hb_ticks=hb_ticks)
         self.jx = [JaxEngine(JaxKV(), IDS, IDS[i], groups=groups, fsms=self.jfsms[i],
                              params=jax_step_params(**kw), base_seed=i, backend="jax",
-                             sparse_io=sparse_io, **engine_kw) for i in range(3)]
+                             sparse_io=sparse_io, **engine_kw, **(jax_kw or {}))
+                   for i in range(3)]
         self.pt = [RaftEngine(MemKV(), IDS, IDS[i], groups=groups, fsms=self.tfsms[i],
                               params=step_params(**kw, device="cpu"), base_seed=i,
                               backend=port_backend, sparse_io=sparse_io, device="cpu",
-                              **engine_kw)
+                              **engine_kw, **(port_kw or {}))
                    for i in range(3)]
         for e in self.jx + self.pt:
             if k_out is not None:
@@ -116,8 +121,13 @@ class Twin:
                 for m in r.outbound:
                     if m.src not in self.cut and m.dst not in self.cut:
                         side[m.dst].receive(m)
+        self.barrier()
         self.compare(what)
         self.tick_no += 1
+
+    def barrier(self):
+        """The driver's delivery barrier after the host messages are handed
+        over (a route fabric's flush in ``test_torch_route.py``)."""
 
     def propose(self, g, payload):
         for ej, et in zip(self.jx, self.pt):
@@ -319,14 +329,25 @@ async def test_twin_cluster_matches_jax_every_tick(name):
 
 
 def test_unported_options_raise():
+    """Only a device mesh still raises. The route fabric, the payload ring
+    and leases are accepted (with the JAX engine's own lease-parameter
+    check), as are sparse IO and the active set."""
     kw = dict(kv=MemKV(), node_ids=IDS, self_id=1, device="cpu")
-    for extra, item in ((dict(groups=8, mesh=object()), "item 10"),
-                        (dict(groups=8, leases=True), "lease plane")):
-        with pytest.raises(NotImplementedError, match=item):
-            RaftEngine(**kw, **extra)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        RaftEngine(**kw, groups=8, mesh=object())
+    lease_params = step_params(timeout_min=4, timeout_max=8, hb_ticks=1, device="cpu")
+    leased = RaftEngine(**kw, groups=8, leases=True, params=lease_params)
+    assert leased.lease_summary() == {"held": 0, "credits": 0, "refused_pushes": 0,
+                                      "armed": 0}
+    with pytest.raises(ValueError, match="timeout_min"):
+        RaftEngine(**kw, groups=8, leases=True,
+                   params=step_params(timeout_min=3, timeout_max=8, hb_ticks=1,
+                                      device="cpu"))
     e = RaftEngine(**kw, groups=8)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        e._fabric = object()
+    assert e._fabric is None and e.lease_summary() is None
+    fab = RouteFabric(payload_ring=True)
+    fab.register(e)
+    assert e._fabric is fab and set(fab.rings) == {e.me}
     with pytest.raises(ValueError, match="backend"):
         RaftEngine(**kw, groups=8, backend="jax")
     # Sparse IO and the active set are ported: sparse is the default above
@@ -359,6 +380,20 @@ def test_bench_engine_scale_path_runs_on_the_host(mode):
         assert set(row["profile_phases"]) >= {"compact", "scatter", "decay"}
     else:
         assert row["k_out_history"] == [[[0, 64]]] * 3
+
+
+def test_bench_engine_device_route_runs_on_the_host():
+    """The bench's route fabric and payload ring at a toy size: every
+    payload AE rides the ring, so no wire entry is decoded on the host in
+    the timed rounds, and the row carries the route phase."""
+    row = bench_engine.run(64, ticks=6, warmup=30, device="cpu", active_frac=0.25,
+                           device_route=True, payload_ring=True)
+    assert row["leaders_per_group"] == {"min": 1, "max": 1}
+    assert row["committed_blocks"] > 0 and row["device_route"] and row["payload_ring"]
+    stats = row["device_route_stats"]
+    assert stats["routed_msgs"] > 0 and stats["routed_frac"] == 1.0, stats
+    assert stats["ring"]["payload_aes_routed"] > 0 and stats["ring"]["spills"] == 0
+    assert "route" in row["profile_phases"]
 
 
 @pytest.mark.parametrize("active", [False, True])

@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                  "josefine_tpu_torch.ops.fused_step", "josefine_tpu_torch.ops._build",
                  "josefine_tpu_torch.models.chained_raft", "josefine_tpu_torch.models.py_step",
                  "josefine_tpu_torch.raft.engine", "josefine_tpu_torch.raft.packed_step",
-                 "josefine_tpu_torch.bench_engine",
+                 "josefine_tpu_torch.raft.route", "josefine_tpu_torch.raft.payload_ring",
+                 "josefine_tpu_torch.raft.lease", "josefine_tpu_torch.bench_engine",
                  *(f"josefine_tpu_torch.utils.{m}" for m in (
                      "tracing", "kv", "metrics", "profiling", "flight", "spans", "health"))):
         assert name in out["imported"]
