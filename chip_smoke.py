@@ -79,10 +79,29 @@ Phases (any failure raises, and the script exits non-zero without a result):
    with leases off must equal that one on the wire. Every route scatter
    must read the sender step's own device output, and no card engine's
    ``tick_begin`` may wait for the device. 7b: ``bench_engine.run`` at
-   P = 100,000 (sparse IO, 1,000 proposals per round) in the order A B C C
-   B A: A host delivery, B ``device_route``, C ``device_route`` and
+   P = 100,000 (sparse IO, 1,000 proposals per round) in the order A B C:
+   A host delivery, B ``device_route``, C ``device_route`` and
    ``payload_ring``; each prints the numbers of 5b plus the routed/host
    split, the ring's statistics and the delivery barrier's host ms.
+
+8. the raft runtime on the card (``raft/server.py``, ``JosefineRaft``; the
+   TCP transport; PyTorch ops only, no hand kernel). 8a: three servers on
+   the card and three on the CPU at P = 4096, the sockets replaced by the
+   fixed-order hop of ``raft/lockstep.py`` on a virtual clock, one script
+   (proposals through random nodes, most forwarded; group 0's leader stopped
+   from tick 30): on every advance the wire (but for client request ids),
+   mirrors, state leaves, chains and FSM applies must be equal, at window 1
+   and at window 4 with pipelined ticks; no tick loop may crash, no server
+   shut down on its own, no proposal fail. 8b:
+   ``josefine_tpu_torch.bench_server.run``, three servers over loopback TCP,
+   256 proposals per round through node 1, at P = 100,000 (sparse IO) and
+   P = 4096: one leader per group, every acknowledged proposal applied once
+   on all three nodes in one order, nothing dropped; it prints ms per tick,
+   committed proposals/s, commit latency in ticks and at the client in ms,
+   host ms per engine phase, frames and bytes per tick, re-sent forwards and
+   the card's idle share, beside phases 5b, 6b and 7b. Then, not a gate, a
+   probe at 7b's load (1,000 proposals per round at P = 100,000) printing
+   its numbers and the gates it would fail.
 
 Each phase prints the seconds since the start when it ends. The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
@@ -621,16 +640,21 @@ def route_parity(dev, P_dense: int = 4096, P_scale: int = 8192, ticks: int = 110
               f"{seconds:.1f} s", flush=True)
 
 
-def route_bench(card: str, P: int = 100_000) -> None:
+def route_bench(card: str, P: int = 100_000) -> list[tuple[str, dict]]:
     """Phase 7b: ``bench_engine.run`` at P = 100,000 (sparse IO), 1,000
     proposals per round (``active_frac=0.01``), 40 warmup and 20 timed
-    rounds, in the order A B C C B A: A the host path, B ``device_route``,
+    rounds, in the order A B C (one pass, not a mirrored A B C C B A, to
+    keep the script within half its time limit): A the host path, B
+    ``device_route``,
     C ``device_route`` with ``payload_ring``. Each must leave one leader per
-    group and commit blocks; B and C must route."""
+    group and commit blocks; B and C must route. Returns the rows by name,
+    in run order."""
     modes = {"A host": {}, "B route": dict(device_route=True),
              "C route+ring": dict(device_route=True, payload_ring=True)}
-    for name in ("A host", "B route", "C route+ring", "C route+ring", "B route", "A host"):
+    rows = []
+    for name in ("A host", "B route", "C route+ring"):
         row = engine_bench(card, P=P, active_frac=0.01, **modes[name])
+        rows.append((name, row))
         stats = row.get("device_route_stats")
         if stats is not None and not stats["routed_msgs"]:
             raise AssertionError(f"route bench {name}: nothing routed")
@@ -642,6 +666,163 @@ def route_bench(card: str, P: int = 100_000) -> None:
               f"device ops per round, step launches "
               f"{row['window_step']['1']['launch_calls']}; route stats "
               f"{json.dumps(stats)} [{card}]", flush=True)
+    return rows
+
+
+def _server_side(dev, pacer, P: int, **cfg_extra):
+    """Three port servers on ``dev`` for the lockstep script: their sockets
+    replaced by a hop, a recording FSM on every group."""
+    from josefine_tpu_torch.config import NodeAddr, RaftConfig
+    from josefine_tpu_torch.raft import lockstep, rpc
+    from josefine_tpu_torch.raft.server import JosefineRaft
+    from josefine_tpu_torch.utils.kv import MemKV
+    from josefine_tpu_torch.utils.net import bound_sockets
+
+    socks, ports = bound_sockets(3)
+    hop = lockstep.Hop(rpc.decode_frame)
+    cfgs = lockstep.mesh_configs(ports, RaftConfig, NodeAddr, **cfg_extra)
+    fsms = [{g: _ListFsm() for g in range(P)} for _ in cfgs]
+    servers = [JosefineRaft(cfg, MemKV(), f, groups=P, pacer=pacer,
+                            intercept_send=hop.intercept(cfg.id), sock=sock, device=dev)
+               for cfg, sock, f in zip(cfgs, socks, fsms)]
+    return lockstep.Side(servers, hop, fsms)
+
+
+def server_parity(dev, P: int = 4096) -> None:
+    """Phase 8a: three port ``JosefineRaft`` servers on the card and three
+    on the CPU, same configuration and seeds, one ``LockstepPacer``, the
+    sockets replaced by the fixed-order hop of ``raft/lockstep.py`` and the
+    loop on its virtual clock; ``lockstep.run_script`` drives both:
+    proposals through random nodes (most forwarded to another node's
+    leader), group 0's leader stopped from tick 30. On every advance the
+    card servers must equal the CPU servers in every frame on the wire (the
+    client request ids aside), every ``_h_*`` mirror, every state leaf,
+    every chain and every FSM's applies. Run 1: window 1, 60 ticks. Run 2:
+    ``window_ticks=4, pipeline_ticks=True``, 180 ticks, 4 per advance while
+    every group has a leader (at P = 4096 the pipelined re-elections after
+    the stop end near tick 140), so windows fold. Each must forward at
+    least 64 proposals, and only run 2 may advance 4 ticks at once."""
+    import numpy as np
+    import torch
+
+    from josefine_tpu_torch import interop
+    from josefine_tpu_torch.raft import lockstep
+    from josefine_tpu_torch.raft.pacer import LockstepPacer
+
+    def mirrors(e):
+        return {k: v for k, v in vars(e).items()
+                if k.startswith("_h_") and isinstance(v, np.ndarray)}
+
+    def compare(t, card, cpu, wires):
+        if wires[0] != wires[1]:
+            raise AssertionError(f"server parity: tick {t}: the wire differs")
+        for a, b in zip(card.servers, cpu.servers):
+            w = f"tick {t} node {a.config.id}"
+            ma, mb = mirrors(a.engine), mirrors(b.engine)
+            for k in ma:
+                if not np.array_equal(ma[k], mb[k]):
+                    raise AssertionError(f"server parity: {w}: {k} differs")
+            for j, (x, y) in enumerate(zip(interop.state_to_numpy(a.engine.state),
+                                           interop.state_to_numpy(b.engine.state))):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"server parity: {w}: state leaf {j} differs")
+            if [(c.head, c.committed, c.floor) for c in a.engine.chains] != \
+                    [(c.head, c.committed, c.floor) for c in b.engine.chains]:
+                raise AssertionError(f"server parity: {w}: chains differ")
+        if [[f.applied for f in n.values()] for n in card.fsms] != \
+                [[f.applied for f in n.values()] for n in cpu.fsms]:
+            raise AssertionError(f"server parity: tick {t}: FSM applies differ")
+
+    for what, ticks, step, extra in (
+            ("window 1", 60, 1, {}),
+            ("window 4, pipelined", 180, 4, dict(window_ticks=4, pipeline_ticks=True))):
+        t0 = time.perf_counter()
+
+        async def main():
+            pacer = LockstepPacer(settle_s=0)
+            card = _server_side(dev, pacer, P, **extra)
+            cpu = _server_side(torch.device("cpu"), pacer, P, **extra)
+            frames = [0]
+
+            def on_tick(t, wires):
+                frames[0] += len(wires[0])
+                compare(t, card, cpu, wires)
+
+            stats = await lockstep.run_script([card, cpu], pacer, ticks=ticks, seed=23,
+                                              per_tick=8, step=step, on_tick=on_tick)
+            return stats, frames[0], card
+
+        stats, frames, card = lockstep.run(main())
+        if stats["forwarded"] < 64 or stats["stopped"] is None or (step > 1) != bool(
+                stats["strided"]):
+            raise AssertionError(f"server parity ({what}): {stats}")
+        live = [s for s in card.servers if s.config.id != stats["stopped"]]
+        print(f"server parity ok ({what}): P={P}, 3 servers on the card == 3 on the CPU "
+              f"on every advance for {stats['ticks']} ticks ({stats['strided']} advances of "
+              f"{step} ticks): {frames} frames byte-equal but for the client request ids, "
+              f"every mirror, state leaf, chain and FSM apply equal; {stats['proposed']} "
+              f"proposals answered, {stats['forwarded']} of them forwarded; node "
+              f"{stats['stopped']} (group 0's leader) stopped, group 0 re-elected on node "
+              f"{next(s.config.id for s in live if s.engine.is_leader(0))}; no tick loop "
+              f"crashed, no server shut down on its own, no proposal failed; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def server_bench(card: str, beside) -> None:
+    """Phase 8b: ``bench_server.run`` (three port servers over loopback TCP,
+    256 proposals per round through node 1) at each of ``sizes``, with its
+    gates, at P = 100,000 and 4096. Prints its numbers beside the in-process
+    engine rows of this call in ``beside`` (name -> row; 5b at P = 4096 and
+    6b at P = 100,000 carry the same load, 7b's A four times it). Then, not
+    gated, a probe of the load the runtime sustains: P = 100,000 at 7b's
+    1,000 proposals per round, printing which gates it would fail."""
+    from josefine_tpu_torch import bench_server
+
+    for P, proposals, gate in ((100_000, bench_server.PROPOSALS_PER_ROUND, True),
+                               (4096, bench_server.PROPOSALS_PER_ROUND, True),
+                               (100_000, 1000, False)):
+        t0 = time.perf_counter()
+        try:
+            row = bench_server.run(P=P, proposals=proposals, gate=gate)
+        except AssertionError as e:
+            if gate:
+                raise
+            print(f"server path (TCP) capacity probe, not a gate: P={P}, {proposals} "
+                  f"proposals per round: the run did not complete: {e} [{card}]", flush=True)
+            continue
+        if not gate:
+            print(f"server path (TCP) capacity probe, not a gate: P={P}, {proposals} "
+                  f"proposals per round; gates it would fail: "
+                  f"{json.dumps(row['gate_failures'])} [{card}]", flush=True)
+        seconds = time.perf_counter() - t0
+        print(json.dumps(row), flush=True)
+        lat, cl, cms = (row["commit_latency_ticks"], row["client_latency_ticks"],
+                        row["client_latency_ms"])
+        phases = ", ".join(f"{k} {v['ms_per_round']:.3f}"
+                           for k, v in row["profile_phases"].items())
+        print(f"server path (TCP): P={P} x 3 servers, {row['proposals_per_round']} proposals "
+              f"per round through node 1 ({row['forwarded_frac']:.3f} forwarded), "
+              f"{row['ms_per_tick']:.3f} ms/tick over the sockets (pacer.advance mean "
+              f"{row['advance_ms']['mean']:.3f}, max {row['advance_ms']['max']:.3f}), "
+              f"{row['committed_proposals_per_sec']:.6g} committed proposals/s, commit "
+              f"latency p50 {lat['p50']} p99 {lat['p99']} ticks (engine, n {lat['n']}), at the "
+              f"client p50 {cl['p50']} p99 {cl['p99']} ticks and p50 {cms['p50']:.3f} p99 "
+              f"{cms['p99']:.3f} ms; host ms per round (3 engines): {phases}; "
+              f"{row['frames_per_tick']:.1f} frames and {row['bytes_per_tick']:.0f} bytes per "
+              f"tick; client requests {json.dumps(row['client_requests'])}; elected in "
+              f"{row['election']['ticks']} ticks; dropped {row['dropped']}; "
+              f"init {row['init_s']:.2f} s; {seconds:.1f} s in all [{card}]", flush=True)
+        if row["device_busy"] is not None:
+            busy = row["device_busy"]
+            print(f"server path (TCP), card over {busy['rounds']} rounds: "
+                  f"{busy['busy_ms']:.3f} ms busy of {busy['wall_ms']:.3f} ms, idle share "
+                  f"{busy['idle_share']:.3f} [{card}]", flush=True)
+        for name, other in beside.items():
+            if other["P"] == P:
+                print(f"server path (TCP) at P={P} against the in-process engine path "
+                      f"{name} in this call ({other['proposals_per_tick']} proposals per "
+                      f"round, {other['ms_per_tick']:.3f} ms/tick): "
+                      f"{row['ms_per_tick'] / other['ms_per_tick']:.3f}x [{card}]", flush=True)
 
 
 def engine_bench(card: str, P: int = 4096, **kw) -> dict:
@@ -912,21 +1093,29 @@ def main() -> int:
     # ---- 5. the consensus engine on the card ----
     upload_no_wait(dev, card)
     engine_parity(dev)
-    engine_bench(card)
+    dense_row = engine_bench(card)
 
     phase_done(5)
 
     # ---- 6. the engine's scale path: sparse IO and the active set ----
     engine_parity_scale(dev)
-    engine_bench(card, P=100_000)
+    sparse_row = engine_bench(card, P=100_000)
     engine_bench(card, P=100_000, active_set=True, active_frac=0.01)
 
     phase_done(6)
 
     # ---- 7. device-resident delivery: the route fabric, the payload ring, leases ----
     route_parity(dev)
-    route_bench(card)
+    host_rows = route_bench(card)
     phase_done(7)
+
+    # ---- 8. the raft runtime: JosefineRaft servers, forwarding, TCP ----
+    server_parity(dev)
+    beside = {"5b": dense_row, "6b": sparse_row,
+              **{f"7b {name} ({i + 1})": row for i, (name, row) in enumerate(host_rows)
+                 if name == "A host"}}
+    server_bench(card, beside)
+    phase_done(8)
 
     print(json.dumps({"kernels": [{
         "name": "fused_window",

@@ -18,14 +18,24 @@ math. This package owns everything variable-length and durable around it:
   ring behind ``RouteFabric(payload_ring=True)``, so AppendEntries with
   ring-resident spans route on the device too;
 * :mod:`josefine_tpu_torch.raft.lease`: tick-denominated leader leases
-  (``RaftEngine(leases=True)``).
+  (``RaftEngine(leases=True)``);
+* :mod:`josefine_tpu_torch.raft.server`: one node's runtime
+  (``JosefineRaft``): the tick loop on a pacer's cadence
+  (:mod:`josefine_tpu_torch.raft.pacer`), the TCP transport
+  (:mod:`josefine_tpu_torch.raft.tcp`) and client proposals routed to the
+  leader; :mod:`josefine_tpu_torch.raft.client` is the in-process handle;
+* :mod:`josefine_tpu_torch.raft.lockstep`: a deterministic harness for
+  in-process clusters of servers (a virtual clock and a fixed-order hop in
+  place of the sockets).
 """
 
 from josefine_tpu_torch.raft.chain import Block, Chain
+from josefine_tpu_torch.raft.client import RaftClient
 from josefine_tpu_torch.raft.fsm import Fsm, Driver
-from josefine_tpu_torch.raft.engine import RaftEngine
+from josefine_tpu_torch.raft.engine import NotLeader, RaftEngine
 from josefine_tpu_torch.raft.payload_ring import PayloadRing
 from josefine_tpu_torch.raft.route import RouteFabric
+from josefine_tpu_torch.raft.server import JosefineRaft, ProposalTimeout
 
-__all__ = ["Block", "Chain", "Fsm", "Driver", "RaftEngine", "PayloadRing",
-           "RouteFabric"]
+__all__ = ["Block", "Chain", "Fsm", "Driver", "RaftEngine", "NotLeader", "PayloadRing",
+           "RouteFabric", "JosefineRaft", "ProposalTimeout", "RaftClient"]

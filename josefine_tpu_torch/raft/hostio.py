@@ -418,6 +418,80 @@ class HostIO:
                 blocks=blocks_by_dst.get(dst) or {}, inc=inc_all[sel]))
         return out
 
+    def _decode_outbox_reference(self, ov, groups,
+                                 skip: set[int] | None = None,
+                                 routed: np.ndarray | None = None) -> list:
+        """Retained scalar reference for :meth:`_decode_outbox` — the per-dst
+        loop with per-entry ``ch.range()`` reads, as in the JAX package. The
+        differential test (tests/test_torch_decode_differential.py) pins the
+        columnar path
+        byte-identical to this across dense/sparse modes, snapshot-floor
+        spans, max_append_entries capping, mid-tick-recycled skip rows, and
+        device-routed cell masks. Never called on the product hot path."""
+        kind = ov[0]
+        copied = False
+        if skip:
+            rows = [i for i, g in enumerate(groups) if int(g) in skip]
+            if rows:
+                kind, copied = kind.copy(), True
+                kind[rows] = 0
+        if routed is not None and routed.any():
+            if not copied:
+                kind = kind.copy()
+            kind[routed] = 0
+        if not kind.any():
+            return []
+        ri, di = np.nonzero(kind)
+        i64 = np.int64
+        xcol = (ov[2].astype(i64) << 32) | ov[3].astype(i64)
+        ycol = (ov[4].astype(i64) << 32) | ov[5].astype(i64)
+        zcol = (ov[6].astype(i64) << 32) | ov[7].astype(i64)
+        out: list = []
+        for dst in range(self.N):
+            sel = di == dst
+            if not sel.any():
+                continue
+            r = ri[sel].astype(np.intp)
+            g = groups[r].astype(np.intp)
+            kcol = kind[r, dst].astype(np.int32)
+            tcol = ov[1][r, dst].astype(i64)
+            okcol = ov[8][r, dst].astype(np.int32)
+            bx = xcol[r, dst]
+            by = ycol[r, dst]
+            bz = zcol[r, dst]
+            batch = rpc.MsgBatch(self.me, dst, g, kcol, tcol, bx, by, bz,
+                                 okcol, inc=self._h_ginc[g])
+            ae = np.nonzero((kcol == rpc.MSG_APPEND) & (by != bx))[0]
+            for i in ae.tolist():
+                grp = int(g[i])
+                ch = self.chains[grp]
+                mx, my, mz = int(bx[i]), int(by[i]), int(bz[i])
+                if mx < ch.floor:
+                    snap = self._snapshot_msg(grp, dst, int(tcol[i]))
+                    if snap is not None:
+                        out.append(snap)
+                    by[i] = mx
+                    bz[i] = min(mz, mx)
+                    continue
+                try:
+                    blks = ch.range(mx, my)
+                except Exception:
+                    log.warning("span (%#x, %#x] unavailable g=%d; heartbeat only",
+                                mx, my, grp)
+                    by[i] = mx
+                    bz[i] = min(mz, mx)
+                else:
+                    cap = self.max_append_entries
+                    if cap is not None and len(blks) > cap:
+                        blks = blks[:cap]
+                        top = blks[-1].id
+                        by[i] = top
+                        bz[i] = min(mz, top)
+                        self._nxt_fixups.append((grp, dst, top))
+                    batch.blocks[grp] = blks
+            out.append(batch)
+        return out
+
     def _drain_nxt_fixups(self) -> None:
         """Apply the outbox decoder's recorded send-pointer re-roots as ONE
         scatter, just before the next dispatch reads ``state.nxt``. The

@@ -1,6 +1,6 @@
 """The tick-loop instruction count behind ``chip_smoke.py``'s kernel bound,
-on a small hand-written SASS listing in ``cuobjdump`` format; and phases 6a
-and 7a rehearsed on the host."""
+on a small hand-written SASS listing in ``cuobjdump`` format; and phases 6a,
+7a and 8 rehearsed on the host."""
 
 import types
 
@@ -85,3 +85,27 @@ def test_route_parity_runs_on_the_host(capsys):
     chip_smoke.route_parity(torch.device("cpu"), P_dense=32, P_scale=64, ticks=50)
     out = capsys.readouterr().out
     assert out.count("route parity ok") == 3 and "host-only" in out
+
+
+def test_server_parity_runs_on_the_host(capsys):
+    """Phase 8a with both clusters of servers on the host at a small size:
+    it compares every advance, both runs, and its gates hold (64 forwarded
+    proposals, the leader stop, multi-tick advances in the windowed run)."""
+    chip_smoke.server_parity(torch.device("cpu"), P=64)
+    assert capsys.readouterr().out.count("server parity ok") == 2
+
+
+def test_server_bench_runs_on_the_host():
+    """Phase 8b's bench at a toy size on the host: the gates hold and the
+    row carries the numbers phase 8 prints."""
+    from josefine_tpu_torch import bench_server
+
+    row = bench_server.run(P=64, rounds=4, warmup=2, proposals=16, device="cpu")
+    assert row["leaders_per_group"] == {"min": 1, "max": 1} and row["dropped"] == 0
+    assert row["acked_in_timed_rounds"] > 0 and 0 < row["forwarded_frac"] < 1
+    assert row["frames_per_tick"] > 0 and row["bytes_per_tick"] > 0
+    assert {"dispatch", "apply", "decode"} <= set(row["profile_phases"])
+    assert row["device"] == "cpu" and row["device_busy"] is None
+    assert row["gate_failures"] == []
+    probe = bench_server.run(P=32, rounds=2, warmup=1, proposals=8, device="cpu", gate=False)
+    assert probe["gate_failures"] == [] and probe["acked"] == (1 + 2) * 8

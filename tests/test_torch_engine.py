@@ -72,35 +72,69 @@ def h_mirrors(engine) -> dict[str, np.ndarray]:
 
 
 class Twin:
-    """Three JAX engines and three port engines, stepped and fed alike."""
+    """JAX engines and port engines (three by default), stepped and fed
+    alike. Slot i holds node id ``ids[i]``; the first ``started`` slots
+    start at once, the others (``None``) with :meth:`start` later."""
 
     def __init__(self, groups=8, hb_ticks=8, port_backend="torch", snap_groups=(),
                  sparse_io=False, k_out=None, fallback_frac=None, timeouts=(3, 8),
-                 jax_kw=None, port_kw=None, **engine_kw):
+                 jax_kw=None, port_kw=None, ids=IDS, started=None, fsm_groups=2,
+                 **engine_kw):
         """``engine_kw`` goes to every engine, ``jax_kw`` / ``port_kw`` to
         one side only."""
         fsm = lambda g: SnapFsm() if g in snap_groups else ListFsm()
-        self.jfsms = [{g: fsm(g) for g in range(2)} for _ in IDS]
-        self.tfsms = [{g: fsm(g) for g in range(2)} for _ in IDS]
+        self.new_fsms = lambda: {g: fsm(g) for g in range(fsm_groups)}
+        n = len(ids)
+        self.jfsms = [self.new_fsms() for _ in range(n)]
+        self.tfsms = [self.new_fsms() for _ in range(n)]
+        self.jkvs = [JaxKV() for _ in range(n)]
+        self.tkvs = [MemKV() for _ in range(n)]
         kw = dict(timeout_min=timeouts[0], timeout_max=timeouts[1], hb_ticks=hb_ticks)
-        self.jx = [JaxEngine(JaxKV(), IDS, IDS[i], groups=groups, fsms=self.jfsms[i],
-                             params=jax_step_params(**kw), base_seed=i, backend="jax",
-                             sparse_io=sparse_io, **engine_kw, **(jax_kw or {}))
-                   for i in range(3)]
-        self.pt = [RaftEngine(MemKV(), IDS, IDS[i], groups=groups, fsms=self.tfsms[i],
-                              params=step_params(**kw, device="cpu"), base_seed=i,
-                              backend=port_backend, sparse_io=sparse_io, device="cpu",
-                              **engine_kw, **(port_kw or {}))
-                   for i in range(3)]
-        for e in self.jx + self.pt:
-            if k_out is not None:
-                e._k_out = k_out
-            if fallback_frac is not None:
-                e.active_fallback_frac = fallback_frac
+        self._jax_args = dict(groups=groups, params=jax_step_params(**kw), backend="jax",
+                              sparse_io=sparse_io, **engine_kw, **(jax_kw or {}))
+        self._port_args = dict(groups=groups, params=step_params(**kw, device="cpu"),
+                               backend=port_backend, sparse_io=sparse_io, device="cpu",
+                               **engine_kw, **(port_kw or {}))
+        self._tune = dict(k_out=k_out, fallback_frac=fallback_frac)
+        self.jx: list = [None] * n
+        self.pt: list = [None] * n
+        for i in range(n if started is None else started):
+            self.start(i, ids)
         self.cut: set[int] = set()   # engines partitioned away
         self.tick_no = 0
 
+    def start(self, i, node_ids):
+        """(Re)build slot i on both sides from its KV with ``node_ids`` as
+        the configured members (a restart keeps what the KV holds)."""
+        ej = JaxEngine(self.jkvs[i], node_ids, node_ids[i], fsms=self.jfsms[i],
+                       base_seed=i, **self._jax_args)
+        et = RaftEngine(self.tkvs[i], node_ids, node_ids[i], fsms=self.tfsms[i],
+                        base_seed=i, **self._port_args)
+        for e in (ej, et):
+            if self._tune["k_out"] is not None:
+                e._k_out = self._tune["k_out"]
+            if self._tune["fallback_frac"] is not None:
+                e.active_fallback_frac = self._tune["fallback_frac"]
+        self.jx[i], self.pt[i] = ej, et
+
+    def restart(self, i):
+        """Slot i crashes and comes back from its KV with fresh FSMs."""
+        self.jfsms[i], self.tfsms[i] = self.new_fsms(), self.new_fsms()
+        self.start(i, self.jx[i].node_ids[:len(self.jx)])
+        self.compare(f"tick {self.tick_no} after restarting engine {i}")
+
+    def pairs(self):
+        return [(i, ej, et) for i, (ej, et) in enumerate(zip(self.jx, self.pt))
+                if ej is not None]
+
+    def each(self, fn):
+        """Call ``fn(engine)`` on every started engine of both sides."""
+        for _, ej, et in self.pairs():
+            fn(ej)
+            fn(et)
+
     def _round(self, engines, window, mode):
+        engines = [e for e in engines if e is not None]
         if mode == "split":
             hs = [e.tick_begin(e.suggest_window(window)) for e in engines]
             return [e.tick_finish(h) for e, h in zip(engines, hs)]
@@ -116,10 +150,13 @@ class Twin:
             assert encode_all(b.outbound) == encode_all(a.outbound), f"{what} engine {i} outbound"
             assert (b.committed, b.became_leader, b.lost_leadership) == \
                    (a.committed, a.became_leader, a.lost_leadership), f"{what} engine {i}"
+            assert [(c.op, c.node_id) for c in b.conf_changes] == \
+                   [(c.op, c.node_id) for c in a.conf_changes], f"{what} engine {i}"
         for side, res in ((self.jx, jres), (self.pt, tres)):
             for r in res:
                 for m in r.outbound:
-                    if m.src not in self.cut and m.dst not in self.cut:
+                    if m.src not in self.cut and m.dst not in self.cut and \
+                            m.dst < len(side) and side[m.dst] is not None:
                         side[m.dst].receive(m)
         self.barrier()
         self.compare(what)
@@ -129,17 +166,24 @@ class Twin:
         """The driver's delivery barrier after the host messages are handed
         over (a route fabric's flush in ``test_torch_route.py``)."""
 
-    def propose(self, g, payload):
-        for ej, et in zip(self.jx, self.pt):
+    def leader(self, g):
+        """The slot leading group ``g`` outside the cut, if any."""
+        for i, ej, et in self.pairs():
             assert ej.is_leader(g) == et.is_leader(g)
             if ej.is_leader(g) and ej.me not in self.cut:
-                ej.propose(g, payload).add_done_callback(_retrieve)
-                et.propose(g, payload).add_done_callback(_retrieve)
-                return True
-        return False
+                return i
+        return None
+
+    def propose(self, g, payload):
+        i = self.leader(g)
+        if i is None:
+            return False
+        self.jx[i].propose(g, payload).add_done_callback(_retrieve)
+        self.pt[i].propose(g, payload).add_done_callback(_retrieve)
+        return True
 
     def compare(self, what):
-        for i, (ej, et) in enumerate(zip(self.jx, self.pt)):
+        for i, ej, et in self.pairs():
             w = f"{what} engine {i}"
             tm, jm = h_mirrors(et), vars(ej)
             assert tm, w
@@ -155,10 +199,15 @@ class Twin:
             assert et.flight.events() == ej.flight.events(), w
             assert et._nxt_fixups == ej._nxt_fixups, w
             assert sched(et) == sched(ej), w
+            if et.lease_summary() is not None and ej.lease_summary() is not None:
+                assert et.lease_summary() == ej.lease_summary(), w
+            np.testing.assert_array_equal(np.asarray(et.member), np.asarray(ej.member),
+                                          err_msg=w)
+            assert et.node_ids == ej.node_ids, w
 
     def compare_queries(self):
         """The status queries, including the ISR view's device fetch."""
-        for ej, et in zip(self.jx, self.pt):
+        for _, ej, et in self.pairs():
             groups = range(et.P)
             assert et.in_sync_map(groups) == ej.in_sync_map(groups)
             assert et.in_sync_ids_map(groups) == ej.in_sync_ids_map(groups)
@@ -294,6 +343,185 @@ async def _run_fallback_reentry(**kw):
         assert e.active_refetches > 0 and e.active_sched_ticks > 0, sched(e)
 
 
+IDS5 = [1, 2, 3, 4, 5]
+
+
+async def _run_five_leader_cut():
+    """5 engines: group 0's leader cut off for 20 ticks from tick 40, the
+    other four re-elect and commit, then the old leader rejoins."""
+    twin = Twin(ids=IDS5)
+    cut_slot = None
+    for t in range(90):
+        if t == 40:
+            cut_slot = twin.leader(0)
+            assert cut_slot is not None, "no leader of group 0 by tick 40"
+        twin.cut = {cut_slot} if cut_slot is not None and t < 60 else set()
+        if t >= 20:
+            drizzle(twin, t)
+        twin.step(1)
+    assert twin.leader(0) is not None
+    lead = twin.tfsms[twin.leader(0)][0].applied
+    assert lead and twin.tfsms[cut_slot][0].applied == lead[:len(twin.tfsms[cut_slot][0].applied)]
+    twin.compare_queries()
+
+
+async def _run_restart_from_kv():
+    """Engine 2 crashes at tick 50 and comes back from its KV (fresh FSMs,
+    replay from the chain)."""
+    twin = Twin()
+    for t in range(90):
+        if t == 50:
+            twin.restart(2)
+        if t >= 20:
+            drizzle(twin, t)
+        twin.step(1)
+    # The restarted engine resumes applying after its last applied block (a
+    # follower learns the newest commit a heartbeat later than the leader).
+    back, lead = twin.tfsms[2][0].applied, twin.tfsms[twin.leader(0)][0].applied
+    assert back and back[0] in lead, (back, lead)
+    i = lead.index(back[0])
+    assert lead[i:i + len(back)] == back, (back, lead)
+    twin.compare_queries()
+
+
+async def _run_restart_after_compaction():
+    """Snapshot FSMs on group 0 (threshold 4) and AppendEntries capped at 2
+    blocks: engine 2 cut off for ticks 40-59 and rebuilt from its KV at 60
+    (its own chain compacted: restore from its snapshot), engine 0 rebuilt
+    at 80."""
+    twin = Twin(snap_groups=(0,), snapshot_threshold=4, max_append_entries=2)
+    for t in range(110):
+        twin.cut = {2} if 40 <= t < 60 else set()
+        if t == 60:
+            twin.restart(2)
+        if t == 80:
+            twin.restart(0)
+        if t >= 20:
+            for g in (0, 1):
+                twin.propose(g, b"t%d-g%d" % (t, g))
+        twin.step(1)
+    assert any(e.chains[0].floor > 0 for e in twin.pt), "no chain was compacted"
+    twin.compare_queries()
+
+
+async def _run_conf_add_remove():
+    """``max_nodes=4``: ``propose_conf`` ADD of node 4 on group 0's leader;
+    once committed node 4 starts with the full member list and catches up;
+    then REMOVE of a follower."""
+    from josefine_tpu.raft.membership import ADD as JADD, REMOVE as JREMOVE
+    from josefine_tpu.raft.membership import ConfChange as JaxConfChange
+    from josefine_tpu_torch.raft.membership import ADD, REMOVE, ConfChange
+
+    twin = Twin(ids=IDS + [4], started=3, max_nodes=4)
+    futs = []
+
+    def conf(jchange, tchange):
+        lead = twin.leader(0)
+        assert lead is not None
+        futs.append((twin.jx[lead].propose_conf(jchange), twin.pt[lead].propose_conf(tchange)))
+
+    for t in range(130):
+        if t == 25:
+            conf(JaxConfChange(op=JADD, node_id=4, ip="x", port=1),
+                 ConfChange(op=ADD, node_id=4, ip="x", port=1))
+        if t == 40:
+            assert all(f.done() for pair in futs for f in pair), "the ADD did not commit"
+            twin.start(3, IDS + [4])
+        if t == 80:
+            lead = twin.leader(0)
+            victim = next(i for i in range(4) if i != lead)
+            conf(JaxConfChange(op=JREMOVE, node_id=victim + 1),
+                 ConfChange(op=REMOVE, node_id=victim + 1))
+        if t >= 15:
+            drizzle(twin, t)
+        twin.step(1)
+    for fj, ft in futs:
+        assert fj.done() and ft.done() and fj.exception() is None and ft.exception() is None
+    assert twin.pt[0].members.active_slots() == twin.jx[0].members.active_slots()
+    assert len(twin.pt[0].members.active_slots()) == 3 and 3 in twin.pt[0].members.active_slots()
+    assert twin.tfsms[3][0].applied, "node 4 applied nothing"
+    twin.compare_queries()
+
+
+async def _run_set_group_members():
+    """5 engines; groups 1 and 2 claimed by slots {0, 1, 2} and {1, 3, 4}
+    before the first tick: each elects and commits among its own members."""
+    twin = Twin(ids=IDS5, fsm_groups=3)
+    twin.each(lambda e: e.set_group_members(1, {0, 1, 2}))
+    twin.each(lambda e: e.set_group_members(2, {1, 3, 4}))
+    for t in range(80):
+        if t >= 20 and t % 3 == 0:
+            for g in (0, 1, 2):
+                twin.propose(g, b"t%d-g%d" % (t, g))
+        twin.step(1)
+    assert twin.leader(1) in (0, 1, 2) and twin.leader(2) in (1, 3, 4)
+    for g, members in ((1, (0, 1, 2)), (2, (1, 3, 4))):
+        assert all(twin.tfsms[i][g].applied for i in members), g
+        assert not any(twin.tfsms[i][g].applied for i in range(5) if i not in members), g
+    twin.compare_queries()
+
+
+async def _run_active_migration():
+    """Active set: row 1 frozen, its fence committed, its applied prefix
+    adopted into row 5 on every engine and row 1 purged; then proposals on
+    row 5."""
+    from josefine_tpu.raft.migration import migration_fence as jax_fence
+    from josefine_tpu_torch.raft.migration import migration_fence
+
+    twin = Twin(active_set=True, snap_groups=(1,), fsm_groups=2)
+    fence = []
+    for t in range(110):
+        if t >= 20 and t < 40 and t % 2 == 0:
+            twin.propose(1, b"w%d" % t)
+        if t == 40:
+            twin.each(lambda e: e.freeze_group(1))
+            lead = twin.leader(1)
+            fence = [twin.jx[lead].propose(1, jax_fence(1, 5)),
+                     twin.pt[lead].propose(1, migration_fence(1, 5))]
+        if t == 55:
+            assert all(f.done() and f.exception() is None for f in fence)
+            lead = twin.leader(1)
+            for side, fsms in ((twin.jx, twin.jfsms), (twin.pt, twin.tfsms)):
+                snap_id = side[lead].chains[1].committed
+                snap = side[lead].drivers[1].fsm.snapshot()
+                for e, f in zip(side, fsms):
+                    f[5] = SnapFsm()
+                    e.register_fsm(5, f[5])
+                    e.migrate_adopt_row(5, snap_id, snap, inc=1)
+                    e.migrate_purge_source(1, inc=1)
+            twin.compare("after the migration")
+        if t >= 70 and t % 3 == 0:
+            twin.propose(5, b"row5-t%d" % t)
+        twin.step(1)
+    lead = twin.leader(5)
+    assert lead is not None and twin.leader(1) is None
+    applied = twin.tfsms[lead][5].applied
+    assert b"w20" in applied and applied[-1].startswith(b"row5-"), applied
+    e = twin.pt[0]
+    assert e.active_sched_ticks > 0, sched(e)
+    twin.compare_queries()
+
+
+async def _run_five_sparse_active_leases(window):
+    """5 engines, 40 groups: sparse IO with a compaction capacity of 8, the
+    active set and leases (``hb_ticks=1``, timeouts 4-8), group 0's leader
+    cut off for ticks 40-59, at ``window``."""
+    twin = Twin(ids=IDS5, groups=40, hb_ticks=1, timeouts=(4, 8), sparse_io=True,
+                k_out=8, active_set=True, leases=True)
+    cut_slot = None
+    for t in range(100):
+        if t == 40:
+            cut_slot = twin.leader(0)
+        twin.cut = {cut_slot} if cut_slot is not None and 40 <= t < 60 else set()
+        if t >= 20:
+            drizzle(twin, t)
+        twin.step(window)
+    summaries = [e.lease_summary() for e in twin.pt]
+    assert all(s["credits"] for s in summaries), summaries
+    assert any(e.active_sched_ticks for e in twin.pt)
+    twin.compare_queries()
+
+
 SCENARIOS = {
     "split-window1": lambda: _run_plain(1, "split"),
     "adaptive-window4": lambda: _run_plain(4, "split"),
@@ -315,11 +543,20 @@ SCENARIOS = {
         groups=32, sparse_io=True, k_out=8),
     "python-backend-active-window4": lambda: _run_plain(
         4, "split", port_backend="python", ticks=50, active_set=True),
+    # Membership, restarts and migration, with more engines.
+    "five-engines-leader-cut": _run_five_leader_cut,
+    "restart-from-kv": _run_restart_from_kv,
+    "restart-after-compaction": _run_restart_after_compaction,
+    "conf-add-remove": _run_conf_add_remove,
+    "set-group-members": _run_set_group_members,
+    "active-freeze-adopt-purge": _run_active_migration,
+    "five-sparse-active-leases-kout8-window1": lambda: _run_five_sparse_active_leases(1),
+    "five-sparse-active-leases-kout8-window4": lambda: _run_five_sparse_active_leases(4),
 }
 TIER1 = {"adaptive-window4", "pipelined-window1", "python-backend-window4",
          "partition-snapshot-cap", "sparse-overflow-window1", "active-partition-recycle",
          "active-pipelined-window4", "sparse-active-fallback-reentry",
-         "python-backend-active-window4"}
+         "python-backend-active-window4", "five-engines-leader-cut"}
 
 
 @pytest.mark.parametrize("name", [

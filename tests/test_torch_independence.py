@@ -11,10 +11,12 @@ import sys
 import pytest
 import torch
 
-from josefine_tpu_torch import bench, bench_engine, interop
+from josefine_tpu_torch import bench, bench_engine, bench_server, interop
+from josefine_tpu_torch.config import EngineConfig, RaftConfig
 from josefine_tpu_torch.models import chained_raft as cr, types
 from josefine_tpu_torch.ops import _build
 from josefine_tpu_torch.raft.engine import RaftEngine
+from josefine_tpu_torch.raft.server import JosefineRaft
 from josefine_tpu_torch.utils.kv import MemKV
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,8 +48,14 @@ def test_port_imports_no_jax():
                  "josefine_tpu_torch.raft.engine", "josefine_tpu_torch.raft.packed_step",
                  "josefine_tpu_torch.raft.route", "josefine_tpu_torch.raft.payload_ring",
                  "josefine_tpu_torch.raft.lease", "josefine_tpu_torch.bench_engine",
+                 "josefine_tpu_torch.bench_server", "josefine_tpu_torch.config",
+                 "josefine_tpu_torch.native", "josefine_tpu_torch.kafka",
+                 "josefine_tpu_torch.kafka.codec", "josefine_tpu_torch.kafka.client",
+                 *(f"josefine_tpu_torch.raft.{m}" for m in (
+                     "server", "tcp", "pacer", "client", "lockstep")),
                  *(f"josefine_tpu_torch.utils.{m}" for m in (
-                     "tracing", "kv", "metrics", "profiling", "flight", "spans", "health"))):
+                     "tracing", "kv", "metrics", "profiling", "flight", "spans", "health",
+                     "shutdown", "net"))):
         assert name in out["imported"]
     after = os.listdir(_build.BUILD_DIR) if os.path.isdir(_build.BUILD_DIR) else []
     assert after == before, "importing the port must build nothing"
@@ -57,9 +65,14 @@ def test_port_imports_no_jax():
                                 cr.empty_inbox, bench.run, interop.state_from_numpy,
                                 interop.msgs_from_numpy, interop.params_from_numpy,
                                 interop.member_from_numpy, interop.peer_fresh_from_numpy,
-                                RaftEngine.__init__, bench_engine.run])
+                                RaftEngine.__init__, bench_engine.run,
+                                JosefineRaft.__init__, bench_server.run])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_config_defaults_to_the_card():
+    assert (EngineConfig().backend, EngineConfig().device) == ("torch", "cuda")
 
 
 def test_default_device_raises_without_a_card():
@@ -70,6 +83,8 @@ def test_default_device_raises_without_a_card():
                  lambda: cr.empty_inbox(2, 3), bench.run,
                  lambda: interop.member_from_numpy([[True, False]]),
                  lambda: RaftEngine(MemKV(), [1, 2, 3], 1, groups=4),
-                 lambda: bench_engine.run(4, ticks=1, warmup=1)):
+                 lambda: bench_engine.run(4, ticks=1, warmup=1),
+                 lambda: JosefineRaft(RaftConfig(), MemKV(), {}, groups=4),
+                 lambda: bench_server.run(4, rounds=1, warmup=1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -8,6 +8,10 @@ uint32 bit patterns.
 
 from __future__ import annotations
 
+import pathlib
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -131,3 +135,31 @@ def random_case(rng: np.random.Generator, P: int, N: int, me: int):
 def jax_view_template(P: int, N: int, me: int):
     """A JAX node-view NodeState of the right structure, for ``to_jax``."""
     return jps._node_view(jcr.init_state(P, N)[0], me)
+
+
+_JAX_IMPORT = re.compile(r"^(\s*(?:from|import)\s+)josefine_tpu(?=[.\s])", re.M)
+
+
+def repointed(name: str, edits=(), leave_out=()) -> dict:
+    """The cases of ``tests/<name>.py``, run against the port.
+
+    The JAX test module's source has every import of the JAX package
+    re-pointed at the port and each ``(old, new)`` of ``edits`` made (each
+    must match exactly once, so a drift of the original fails here), and
+    runs as a module of its own. Returns its ``test_*`` functions and
+    ``Test*`` classes, less those named in ``leave_out``, for the calling
+    test file to take into its namespace."""
+    path = pathlib.Path(__file__).with_name(f"{name}.py")
+    src = _JAX_IMPORT.sub(r"\1josefine_tpu_torch", path.read_text())
+    for old, new in edits:
+        assert src.count(old) == 1, f"{name}: {old!r} matches {src.count(old)} times"
+        src = src.replace(old, new)
+    ns = {"__name__": f"{name}__on_the_port", "__file__": str(path)}
+    exec(compile(src, str(path), "exec"), ns)
+    for k, v in ns.items():
+        mod = v.__name__ if isinstance(v, types.ModuleType) else getattr(v, "__module__", "")
+        assert str(mod).split(".")[0] != "josefine_tpu", f"{name}: {k} is the JAX package's"
+    tests = {k: v for k, v in ns.items()
+             if k.startswith(("test_", "Test")) and k not in leave_out}
+    assert set(leave_out) <= set(ns), f"{name}: no {sorted(set(leave_out) - set(ns))}"
+    return tests
