@@ -94,14 +94,13 @@ Phases (any failure raises, and the script exits non-zero without a result):
    and at window 4 with pipelined ticks; no tick loop may crash, no server
    shut down on its own, no proposal fail. 8b:
    ``josefine_tpu_torch.bench_server.run``, three servers over loopback TCP,
-   256 proposals per round through node 1, at P = 100,000 (sparse IO) and
-   P = 4096: one leader per group, every acknowledged proposal applied once
-   on all three nodes in one order, nothing dropped; it prints ms per tick,
-   committed proposals/s, commit latency in ticks and at the client in ms,
-   host ms per engine phase, frames and bytes per tick, re-sent forwards and
-   the card's idle share, beside phases 5b, 6b and 7b. Then, not a gate, a
-   probe at 7b's load (1,000 proposals per round at P = 100,000) printing
-   its numbers and the gates it would fail.
+   1,000 proposals per round through node 1 (7b's load), at P = 100,000
+   (sparse IO) and P = 4096: one leader per group, every acknowledged
+   proposal applied once on all three nodes in one order, nothing dropped;
+   it prints ms per tick, committed proposals/s, commit latency in ticks and
+   at the client in ms, host ms per engine phase, frames and bytes per tick,
+   re-sent forwards, the servers' slowdown, the fullest send queue and the
+   card's idle share, beside phases 5b, 6b and 7b.
 
 Each phase prints the seconds since the start when it ends. The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
@@ -770,30 +769,16 @@ def server_parity(dev, P: int = 4096) -> None:
 
 def server_bench(card: str, beside) -> None:
     """Phase 8b: ``bench_server.run`` (three port servers over loopback TCP,
-    256 proposals per round through node 1) at each of ``sizes``, with its
-    gates, at P = 100,000 and 4096. Prints its numbers beside the in-process
-    engine rows of this call in ``beside`` (name -> row; 5b at P = 4096 and
-    6b at P = 100,000 carry the same load, 7b's A four times it). Then, not
-    gated, a probe of the load the runtime sustains: P = 100,000 at 7b's
-    1,000 proposals per round, printing which gates it would fail."""
+    1,000 proposals per round through node 1) with its gates, at P = 100,000
+    and 4096. Prints its numbers beside the in-process engine rows of this
+    call in ``beside`` (name -> row; 7b's A carries the same load at P =
+    100,000, 5b and 6b a quarter of it)."""
     from josefine_tpu_torch import bench_server
+    from josefine_tpu_torch.raft.tcp import SEND_QUEUE_DEPTH
 
-    for P, proposals, gate in ((100_000, bench_server.PROPOSALS_PER_ROUND, True),
-                               (4096, bench_server.PROPOSALS_PER_ROUND, True),
-                               (100_000, 1000, False)):
+    for P in (100_000, 4096):
         t0 = time.perf_counter()
-        try:
-            row = bench_server.run(P=P, proposals=proposals, gate=gate)
-        except AssertionError as e:
-            if gate:
-                raise
-            print(f"server path (TCP) capacity probe, not a gate: P={P}, {proposals} "
-                  f"proposals per round: the run did not complete: {e} [{card}]", flush=True)
-            continue
-        if not gate:
-            print(f"server path (TCP) capacity probe, not a gate: P={P}, {proposals} "
-                  f"proposals per round; gates it would fail: "
-                  f"{json.dumps(row['gate_failures'])} [{card}]", flush=True)
+        row = bench_server.run(P=P)
         seconds = time.perf_counter() - t0
         print(json.dumps(row), flush=True)
         lat, cl, cms = (row["commit_latency_ticks"], row["client_latency_ticks"],
@@ -809,12 +794,15 @@ def server_bench(card: str, beside) -> None:
               f"client p50 {cl['p50']} p99 {cl['p99']} ticks and p50 {cms['p50']:.3f} p99 "
               f"{cms['p99']:.3f} ms; host ms per round (3 engines): {phases}; "
               f"{row['frames_per_tick']:.1f} frames and {row['bytes_per_tick']:.0f} bytes per "
-              f"tick; client requests {json.dumps(row['client_requests'])}; elected in "
+              f"tick; client requests {json.dumps(row['client_requests'])}; server slowdown "
+              f"mean {row['slowdown']['mean']:.3f} max {row['slowdown']['max']:.3f}; fullest "
+              f"send queue {row['queue_peak']} of {SEND_QUEUE_DEPTH}; elected in "
               f"{row['election']['ticks']} ticks; dropped {row['dropped']}; "
               f"init {row['init_s']:.2f} s; {seconds:.1f} s in all [{card}]", flush=True)
         if row["device_busy"] is not None:
             busy = row["device_busy"]
-            print(f"server path (TCP), card over {busy['rounds']} rounds: "
+            print(f"server path (TCP), card over {busy['rounds']} rounds and the ticks until "
+                  f"they were answered ({busy['ticks']} ticks): "
                   f"{busy['busy_ms']:.3f} ms busy of {busy['wall_ms']:.3f} ms, idle share "
                   f"{busy['idle_share']:.3f} [{card}]", flush=True)
         for name, other in beside.items():

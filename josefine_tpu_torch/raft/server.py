@@ -3,10 +3,22 @@
 The PyTorch port of the JAX package's ``raft/server.py``. The runtime is the
 same host code; the engine's state lives on ``device`` (the card unless the
 caller asks for the CPU), and ``backend`` picks the PyTorch engine
-(``"torch"``, the default) or the scalar one (``"python"``). One difference:
-bounding the leader's dedup map costs what it evicts, not a scan and a sort
-of the whole map per forwarded request (:meth:`JosefineRaft._evict_served`);
-it evicts the same entries.
+(``"torch"``, the default) or the scalar one (``"python"``). Two deliberate
+differences, both about forwarded proposals under load:
+
+* A forward's wait for its ``CLIENT_RESP`` and the leader's wait for the
+  commit stretch with the ticks: they are the JAX server's 2 s and 5 s at
+  the configured ``tick_ms``, times the largest factor by which a cycle of
+  the tick loop ran slower than that while they wait
+  (:attr:`JosefineRaft.slowdown`). With fixed waits, once a tick takes
+  more than about a third of 2 s every forward is sent again before its
+  commit can arrive; the copies fill the per-peer queues, which drop on
+  full, and the backlog pushes live requests out of the dedup map, whose
+  re-forwards then mint a second block.
+* Bounding the leader's dedup map (:meth:`JosefineRaft._evict_served`)
+  costs what it visits, not a scan and a sort of the whole map per
+  forwarded request, and past its cap it drops finished entries before
+  live ones, where the JAX server drops the oldest entries, live or not.
 
 Parity: reference ``src/raft/server.rs`` — bind listener, spawn tcp
 send/recv + fsm driver + event loop (:48-100), 100 ms tick (:25), select
@@ -52,6 +64,12 @@ class ProposalTimeout(Exception):
 # forgotten and a re-forward is served fresh.
 SERVED_TTL_S = 30.0
 SERVED_SOFT_CAP = 4096
+# How long a forward waits for its CLIENT_RESP before sending the request
+# again, and how long the leader waits for the commit before answering a
+# failure, when ticks run at the configured tick_ms; both stretch by
+# JosefineRaft.slowdown.
+FORWARD_TIMEOUT_S = 2.0
+SERVE_TIMEOUT_S = 5.0
 
 
 class JosefineRaft:
@@ -146,6 +164,10 @@ class JosefineRaft:
         # recorded as they fail, so an eviction need not visit every entry.
         self._served_dead: set[str] = set()
         self._bg_tasks: set[asyncio.Task] = set()
+        # How many times longer than tick_ms (times its ticks) the tick
+        # loop's last cycle took, at least 1: the wall time between the
+        # starts of two windows, waits for the pacer's grant included.
+        self.slowdown = 1.0
         self._tick_task: asyncio.Task | None = None
         self.bound_addr: tuple[str, int] | None = None
 
@@ -235,9 +257,28 @@ class JosefineRaft:
                     payload=payload,
                 ),
             )
-            return await asyncio.wait_for(fut, min(timeout, 2.0))
+            return await self._await_stretched(fut, FORWARD_TIMEOUT_S, timeout)
         finally:
             self._forwarded.pop(req_id, None)
+
+    async def _await_stretched(self, fut: asyncio.Future, base_s: float,
+                               limit_s: float = float("inf")):
+        """Await ``fut`` for ``base_s`` times the largest ``slowdown`` seen
+        while waiting, and at most ``limit_s``; then raise
+        ``asyncio.TimeoutError``. The JAX server waits ``base_s`` flat. A
+        wait that starts while ticks are fast and outlives the load's
+        arrival stretches with it."""
+        loop = asyncio.get_running_loop()
+        start = loop.time()
+        scale = self.slowdown
+        while True:
+            left = min(limit_s, base_s * scale) - (loop.time() - start)
+            if left <= 0:
+                raise asyncio.TimeoutError
+            try:
+                return await asyncio.wait_for(asyncio.shield(fut), left)
+            except asyncio.TimeoutError:
+                scale = max(scale, self.slowdown)
 
     # ----------------------------------------------------------- membership
 
@@ -277,17 +318,20 @@ class JosefineRaft:
             self.engine.receive(msg)
 
     def _evict_served(self, now: float) -> None:
-        """Bound the dedup map: age out expired/failed entries; if a burst
-        of live in-flight entries still exceeds the cap, drop oldest first
-        (losing dedup for them, never correctness — a re-forward would just
-        propose again).
+        """Bound the dedup map: age out expired/failed entries; if the map
+        is still past its cap, drop the oldest finished entries, and live
+        in-flight ones, oldest first, only when no finished entry is left
+        (losing dedup for them: a re-forward would propose again).
 
-        The same entries as the JAX server's scan of every entry and sort by
-        age, at the cost of the entries removed: the map is in age order, so
-        the expired entries are a prefix and the oldest come first, and the
-        failed ones are recorded in ``_served_dead`` as they fail. At a few
-        hundred forwarded requests per tick the full scan and sort, once the
-        map is past its cap, took more host time than the tick itself."""
+        The map is in age order, so the expired entries are a prefix, and
+        the failed ones are recorded in ``_served_dead`` as they fail, so
+        the cost is that of the entries visited. A future that failed in
+        this loop turn, before its done-callback ran, is finished and
+        goes before any live entry. The JAX server scans every entry,
+        sorts by age and drops the oldest past the cap, live or not: at a
+        few hundred forwarded requests per tick that took more host time
+        than the tick itself, and a backlog of live requests lost their
+        dedup while finished ones stayed."""
         served = self._served
         if len(served) <= SERVED_SOFT_CAP:
             return
@@ -304,6 +348,16 @@ class JosefineRaft:
         for k in expired:
             del served[k]
         excess = len(served) - SERVED_SOFT_CAP
+        if excess > 0:
+            finished = []
+            for k, (f, _) in served.items():
+                if f.done():
+                    finished.append(k)
+                    if len(finished) == excess:
+                        break
+            for k in finished:
+                del served[k]
+            excess -= len(finished)
         if excess > 0:
             for k in list(itertools.islice(served, excess)):
                 del served[k]
@@ -333,7 +387,7 @@ class JosefineRaft:
                 self._served[msg.req_id] = (fut, now)
                 fut.add_done_callback(functools.partial(self._served_done, msg.req_id))
                 self._evict_served(now)
-            result = await asyncio.wait_for(asyncio.shield(fut), 5.0)
+            result = await self._await_stretched(fut, SERVE_TIMEOUT_S)
             ok, payload = 1, result
         except Exception:
             ok, payload = 0, b""
@@ -362,9 +416,12 @@ class JosefineRaft:
         # outbound flushes one loop iteration later, the +1-tick latency
         # the knob's docstring prices in.
         pipeline = bool(getattr(self.config, "pipeline_ticks", False))
+        last = None  # (start, ticks) of the previous cycle
         try:
             while not self.shutdown.is_shutdown:
                 t0 = asyncio.get_running_loop().time()
+                if last is not None:
+                    self.slowdown = max(1.0, (t0 - last[0]) / (interval * last[1]))
                 # Steady-state clusters fold up to window_ticks ticks into
                 # one device dispatch; elections/snapshots/parole drop back
                 # to single ticks (engine.suggest_window). The pacer may
@@ -395,6 +452,7 @@ class JosefineRaft:
                     dst_id = self.engine.node_ids[m.dst]
                     if dst_id is not None:
                         self.transport.send(dst_id, m)
+                last = (t0, w)
                 elapsed = asyncio.get_running_loop().time() - t0
                 # Wall pacer: a w-tick window covers w tick intervals of
                 # wall time. Lockstep pacer: report this node parked.

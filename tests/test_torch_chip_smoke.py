@@ -100,12 +100,12 @@ def test_server_bench_runs_on_the_host():
     row carries the numbers phase 8 prints."""
     from josefine_tpu_torch import bench_server
 
-    row = bench_server.run(P=64, rounds=4, warmup=2, proposals=16, device="cpu")
+    row = bench_server.run(P=64, rounds=4, warmup=2, device="cpu")
     assert row["leaders_per_group"] == {"min": 1, "max": 1} and row["dropped"] == 0
+    assert row["proposals_per_round"] == 64 and row["acked"] == (2 + 4 + 0) * 64
     assert row["acked_in_timed_rounds"] > 0 and 0 < row["forwarded_frac"] < 1
     assert row["frames_per_tick"] > 0 and row["bytes_per_tick"] > 0
     assert {"dispatch", "apply", "decode"} <= set(row["profile_phases"])
     assert row["device"] == "cpu" and row["device_busy"] is None
-    assert row["gate_failures"] == []
-    probe = bench_server.run(P=32, rounds=2, warmup=1, proposals=8, device="cpu", gate=False)
-    assert probe["gate_failures"] == [] and probe["acked"] == (1 + 2) * 8
+    assert row["client_requests"]["resent"] == 0 and row["slowdown"]["max"] >= 1.0
+    assert 0 < row["queue_peak"] < 1000
