@@ -101,6 +101,29 @@ Phases (any failure raises, and the script exits non-zero without a result):
    at the client in ms, host ms per engine phase, frames and bytes per tick,
    re-sent forwards, the servers' slowdown, the fullest send queue and the
    card's idle share, beside phases 5b, 6b and 7b.
+9. the node on the card (``node.py``: the broker, the metadata and partition
+   group FSMs, the segment logs, the Kafka surface; PyTorch ops only, no
+   hand kernel). 9a: three port nodes on the card and three on the CPU, KV
+   in memory, on the lockstep hop and virtual clock of
+   ``josefine_tpu_torch/node_lockstep.py``, given one Kafka script through
+   ``Broker.handle_request``: CreateTopics (replication factor 3), Produce
+   with ``acks=-1`` to each partition's leader, the metadata leader stopped
+   partway, Fetch from every live replica, Metadata, ListOffsets,
+   FindCoordinator, OffsetCommit and OffsetFetch. On every advance the
+   Kafka answers, the raft wire, every node's KV, partition logs, chains,
+   mirrors and state leaves must be equal, at window 1 and at window 4 with pipelined
+   ticks, and no card engine's ``tick_begin`` may wait for the device. 9b:
+   ``josefine_tpu_torch.bench_node.run``, the shape of the OpenMessaging
+   Benchmark's ``1-topic-100-partitions-1kb`` Kafka workload under its Kafka
+   driver's replication factor 3 and ``acks=all``: three nodes started
+   through ``josefine_with_config`` (wall clock, loopback TCP, durable logs,
+   128 engine rows), one idempotent closed-loop producer, 20 batches of 16
+   x 1 KB records per partition; every acknowledged batch must be read back
+   from all three logs at its offset, byte for byte, none missing or
+   duplicated, no error logged, one leader per partition. It prints
+   acknowledged records/s and MB/s, produce and fetch latency at the client,
+   each node's ms per tick, host ms per engine phase, raft frames and bytes
+   per tick and the card's idle share.
 
 Each phase prints the seconds since the start when it ends. The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
@@ -813,6 +836,115 @@ def server_bench(card: str, beside) -> None:
                       f"{row['ms_per_tick'] / other['ms_per_tick']:.3f}x [{card}]", flush=True)
 
 
+def _strict_tick_begin(e) -> None:
+    """Run a card engine's ``tick_begin`` under CUDA's sync debug mode set to
+    error: a host wait inside it raises."""
+    import torch
+
+    inner = e.tick_begin
+
+    def begin(window: int = 1):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(window)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    e.tick_begin = begin
+
+
+def node_parity(dev, P: int = 32, partitions: int = 8) -> None:
+    """Phase 9a: three port nodes on ``dev`` and three on the CPU (``P``
+    engine rows, KV in memory) given ``node_lockstep.run_kafka_script``
+    with ``partitions`` topic partitions: on every advance equal Kafka
+    answers, raft wires, KVs, partition logs, chains, mirrors and state
+    leaves; every
+    acknowledged batch read back from every live replica. Run 1: window 1.
+    Run 2: ``window_ticks=4, pipeline_ticks=True``, 4 ticks per advance
+    while every claimed group has a leader. A card engine's ``tick_begin``
+    runs under sync debug "error"."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from josefine_tpu_torch import config, interop, node_lockstep
+    from josefine_tpu_torch.broker import handlers
+    from josefine_tpu_torch.node import Node
+    from josefine_tpu_torch.raft import lockstep, rpc
+    from josefine_tpu_torch.raft.pacer import LockstepPacer
+
+    kit = node_lockstep.Kit(Node, config, handlers, rpc.decode_frame,
+                            lambda e: interop.state_to_numpy(e.state))
+    for what, step, extra in (
+            ("window 1", 1, {}),
+            ("window 4, pipelined", 4, dict(window_ticks=4, pipeline_ticks=True))):
+        t0 = time.perf_counter()
+
+        async def main(root):
+            pacer = LockstepPacer(settle_s=0)
+            sides = node_lockstep.build_sides(
+                [kit, kit], pacer, root, partitions=P, seed=11, raft_extra=extra,
+                engine_kws=[{"device": str(dev)}, {"device": "cpu"}])
+            if dev.type == "cuda":
+                for n in sides[0].nodes:
+                    _strict_tick_begin(n.raft.engine)
+            with node_lockstep.seeded([kit, kit]):
+                return await node_lockstep.run_kafka_script(
+                    sides, pacer, seed=7, step=step, partitions=partitions)
+
+        with tempfile.TemporaryDirectory(prefix="node_parity_") as td:
+            stats = lockstep.run(main(pathlib.Path(td)))
+        if stats["stopped"] is None or stats["acked"] != 4 * partitions or (step > 1) != bool(
+                stats["strided"]):
+            raise AssertionError(f"node parity ({what}): {stats}")
+        print(f"node parity ok ({what}): P={P}, 3 nodes on the card == 3 on the CPU on "
+              f"every advance ({stats['compared']} advances, {stats['ticks']} ticks, "
+              f"{stats['strided']} of {step} ticks): {stats['requests']} Kafka requests "
+              f"answered alike, {stats['frames']} raft frames byte-equal but for the client "
+              f"request ids, every KV, partition log, chain, mirror and state leaf equal; "
+              f"{stats['acked']} batches acknowledged on {partitions} partitions "
+              f"(replication factor 3), {stats['retried']} sent again; node "
+              f"{stats['stopped']} (the metadata leader) stopped; every acknowledged batch "
+              f"read back from every live replica; "
+              f"{'tick_begin under sync debug error; ' if dev.type == 'cuda' else ''}"
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def node_bench(card: str, **kw) -> dict:
+    """Phase 9b: ``bench_node.run`` (three nodes over loopback TCP, the
+    OpenMessaging Benchmark 1-topic-100-partitions-1kb shape) with its
+    gates; prints its numbers."""
+    from josefine_tpu_torch import bench_node
+
+    t0 = time.perf_counter()
+    row = bench_node.run(**kw)
+    seconds = time.perf_counter() - t0
+    print(json.dumps(row), flush=True)
+    pl, fl = row["produce_latency_ms"], row["fetch_latency_ms"]
+    phases = ", ".join(f"{k} {v['ms_per_tick']:.3f}"
+                       for k, v in row["profile_phases"].items())
+    print(f"node path (Kafka over TCP): {row['partitions']} partitions x RF 3, acks=all, "
+          f"{row['batches_acked']} batches ({row['records_acked']} records of "
+          f"{row['record_bytes']} B) acknowledged and read back from all 3 nodes byte for "
+          f"byte; over the {row['timed_batches']} timed batches "
+          f"{row['records_per_sec']:.6g} records/s, {row['mb_per_sec']:.6g} MB/s; produce "
+          f"latency at the client p50 {pl['p50']:.3f} p99 {pl['p99']:.3f} ms (n {pl['n']}); "
+          f"fetch latency p50 {fl['p50']:.3f} p99 {fl['p99']:.3f} ms (n {fl['n']}); ms per "
+          f"tick per node {[round(x, 3) for x in row['ms_per_tick']]} (tick_ms "
+          f"{row['tick_ms_configured']}); host ms per tick (3 engines): {phases}; "
+          f"{row['frames_per_tick']:.1f} raft frames and {row['bytes_per_tick']:.0f} bytes "
+          f"per tick; {row['retried']} produces sent again; ready in {row['ready_s']:.2f} s; "
+          f"{seconds:.1f} s in all [{card}]", flush=True)
+    busy = row["device_busy"]
+    if busy is not None:
+        print(f"node path, card over the {busy['batches']} traced batches "
+              f"({busy['ticks']} ticks per node): {busy['busy_ms']:.3f} ms busy of "
+              f"{busy['wall_ms']:.3f} ms, idle share {busy['idle_share']:.6f} [{card}]",
+              flush=True)
+    return row
+
+
 def engine_bench(card: str, P: int = 4096, **kw) -> dict:
     """Phases 5b, 6b and 6c: the engine path at full size on the card
     (``bench_engine.run``; ``kw`` picks the active set), with its gates."""
@@ -1104,6 +1236,11 @@ def main() -> int:
                  if name == "A host"}}
     server_bench(card, beside)
     phase_done(8)
+
+    # ---- 9. the node: the broker, partition groups and Kafka over the engine ----
+    node_parity(dev)
+    node_bench(card)
+    phase_done(9)
 
     print(json.dumps({"kernels": [{
         "name": "fused_window",

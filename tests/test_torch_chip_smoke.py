@@ -109,3 +109,27 @@ def test_server_bench_runs_on_the_host():
     assert row["device"] == "cpu" and row["device_busy"] is None
     assert row["client_requests"]["resent"] == 0 and row["slowdown"]["max"] >= 1.0
     assert 0 < row["queue_peak"] < 1000
+
+
+def test_node_parity_runs_on_the_host(capsys):
+    """Phase 9a with both clusters of nodes on the host at a small size: it
+    compares every advance, both runs, and its gates hold (the metadata
+    leader's stop, every batch acknowledged, multi-tick advances in the
+    windowed run)."""
+    chip_smoke.node_parity(torch.device("cpu"), P=16, partitions=2)
+    assert capsys.readouterr().out.count("node parity ok") == 2
+
+
+def test_node_bench_runs_on_the_host():
+    """Phase 9b's bench at a toy size on the host: three nodes started
+    through ``josefine_with_config``, every acknowledged batch read back from
+    all three, and the row carries the numbers phase 9 prints."""
+    from josefine_tpu_torch import bench_node
+
+    row = bench_node.run(partitions=4, batches=3, traced=1, device="cpu")
+    assert row["batches_acked"] == 12 and row["records_acked"] == 12 * 16
+    assert row["timed_batches"] == 8 and row["records_per_sec"] > 0 and row["mb_per_sec"] > 0
+    assert row["produce_latency_ms"]["n"] == 8 and row["fetch_latency_ms"]["n"] == 12
+    assert len(row["ms_per_tick"]) == 3 and row["frames_per_tick"] > 0
+    assert {"dispatch", "apply", "decode"} <= set(row["profile_phases"])
+    assert row["engine_partitions"] == 128 and row["device_busy"] is None

@@ -22,6 +22,11 @@ MODULES = [
     "raft/result.py", "raft/migration.py", "raft/lease.py", "raft/pacer.py",
     "raft/client.py", "raft/tcp.py",
     "kafka/__init__.py", "kafka/client.py", "kafka/codec.py",
+    "broker/__init__.py", "broker/state.py", "broker/fsm.py", "broker/records.py",
+    "broker/log.py", "broker/fetch_frame.py", "broker/replica.py",
+    "broker/partition_fsm.py", "broker/groups.py", "broker/handlers.py",
+    "broker/server.py",
+    "node.py", "__main__.py",
 ]
 NATIVE_SOURCES = ["native/src/kafka_codec.cpp", "native/src/seglog.cpp"]
 
@@ -54,14 +59,62 @@ encode_request = _native("encode_request")
 decode_response = _native("decode_response")
 supported_apis = _native("supported_apis")
 '''
-# Deliberate differences between a copy and its original, by module: the
-# reason, the original's text and the copy's in its place.
-DIFFERENCES: dict[str, tuple[str, str, str]] = {
-    "kafka/codec.py": (
+_MESH_BRANCH = '''        mesh = None
+        if config.engine.mesh_shards:
+            # Shard the consensus-group axis over local devices (pure data
+            # parallelism — groups are independent; see RaftEngine mesh).
+            import jax
+            from jax.sharding import Mesh
+
+            import numpy as _np
+
+            devs = jax.devices()
+            k = config.engine.mesh_shards
+            if len(devs) < k:
+                raise ValueError(
+                    f"engine.mesh_shards={k} but only {len(devs)} devices")
+            mesh = Mesh(_np.array(devs[:k]), ("p",))
+'''
+_NO_MESH = '''        # No device mesh: config.validate() above raises for
+        # engine.mesh_shards > 0, which the PyTorch engine does not take yet.
+        mesh = None
+'''
+_BACKEND = '''            backend=config.engine.backend,
+'''
+_BACKEND_AND_DEVICE = '''            backend=config.engine.backend,
+            # The engine's state lives on the configured device: the card
+            # unless the config says "cpu" (no card: it raises).
+            device=config.engine.device,
+'''
+# Deliberate differences between a copy and its original, by module: for
+# each, the reason, the original's text and the copy's in its place.
+DIFFERENCES: dict[str, list[tuple[str, str, str]]] = {
+    "kafka/codec.py": [(
         "The JAX codec builds and loads its extension when the module is imported; "
         "the port's does so at the first call, because importing the port must build "
         "nothing (tests/test_torch_independence.py).",
-        _CODEC_AT_IMPORT, _CODEC_AT_FIRST_CALL),
+        _CODEC_AT_IMPORT, _CODEC_AT_FIRST_CALL)],
+    "node.py": [
+        ("The JAX node builds a jax.sharding.Mesh when engine.mesh_shards is set; the "
+         "port imports no JAX, and its EngineConfig.validate (called first) raises "
+         "NotImplementedError for mesh_shards > 0 (ROADMAP item 10), so the branch goes.",
+         _MESH_BRANCH, _NO_MESH),
+        ("The port's JosefineRaft also takes the engine's device: the card by default, "
+         "the host where the config says \"cpu\".",
+         _BACKEND, _BACKEND_AND_DEVICE),
+    ],
+    "__main__.py": [
+        ("The port's CLI is run as python -m josefine_tpu_torch.",
+         '"""CLI: ``python -m josefine_tpu <config.toml>``.',
+         '"""CLI: ``python -m josefine_tpu_torch <config.toml>``.'),
+        ("The port's program name and description.",
+         '''        prog="josefine-tpu",
+        description="TPU-native distributed event stream (Kafka wire protocol, "
+        "batched Chained-Raft consensus on device)",''',
+         '''        prog="josefine-tpu-torch",
+        description="Distributed event stream (Kafka wire protocol, batched "
+        "Chained-Raft consensus on an NVIDIA card through PyTorch)",'''),
+    ],
 }
 # ``josefine_tpu`` as a whole name on an import line: ``josefine_tpu.x``
 # and ``from josefine_tpu import x``.
@@ -73,8 +126,7 @@ def test_copy_equals_original_with_imports_repointed(module):
     original = (REPO / "josefine_tpu" / module).read_text()
     copy = (REPO / "josefine_tpu_torch" / module).read_text()
     want = _IMPORT.sub(r"\1josefine_tpu_torch", original)
-    if module in DIFFERENCES:
-        _, old, new = DIFFERENCES[module]
+    for _, old, new in DIFFERENCES.get(module, ()):
         assert want.count(old) == 1, f"josefine_tpu/{module} no longer holds the recorded text"
         want = want.replace(old, new)
     assert copy == want, (

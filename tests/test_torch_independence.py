@@ -11,7 +11,7 @@ import sys
 import pytest
 import torch
 
-from josefine_tpu_torch import bench, bench_engine, bench_server, interop
+from josefine_tpu_torch import bench, bench_engine, bench_node, bench_server, interop
 from josefine_tpu_torch.config import EngineConfig, RaftConfig
 from josefine_tpu_torch.models import chained_raft as cr, types
 from josefine_tpu_torch.ops import _build
@@ -49,13 +49,19 @@ def test_port_imports_no_jax():
                  "josefine_tpu_torch.raft.route", "josefine_tpu_torch.raft.payload_ring",
                  "josefine_tpu_torch.raft.lease", "josefine_tpu_torch.bench_engine",
                  "josefine_tpu_torch.bench_server", "josefine_tpu_torch.config",
+                 "josefine_tpu_torch.bench_node", "josefine_tpu_torch.node_lockstep",
                  "josefine_tpu_torch.native", "josefine_tpu_torch.kafka",
                  "josefine_tpu_torch.kafka.codec", "josefine_tpu_torch.kafka.client",
                  *(f"josefine_tpu_torch.raft.{m}" for m in (
                      "server", "tcp", "pacer", "client", "lockstep")),
                  *(f"josefine_tpu_torch.utils.{m}" for m in (
                      "tracing", "kv", "metrics", "profiling", "flight", "spans", "health",
-                     "shutdown", "net"))):
+                     "shutdown", "net")),
+                 "josefine_tpu_torch.broker", "josefine_tpu_torch.node",
+                 "josefine_tpu_torch.__main__",
+                 *(f"josefine_tpu_torch.broker.{m}" for m in (
+                     "state", "fsm", "records", "log", "fetch_frame", "replica",
+                     "partition_fsm", "groups", "handlers", "server"))):
         assert name in out["imported"]
     after = os.listdir(_build.BUILD_DIR) if os.path.isdir(_build.BUILD_DIR) else []
     assert after == before, "importing the port must build nothing"
@@ -66,7 +72,7 @@ def test_port_imports_no_jax():
                                 interop.msgs_from_numpy, interop.params_from_numpy,
                                 interop.member_from_numpy, interop.peer_fresh_from_numpy,
                                 RaftEngine.__init__, bench_engine.run,
-                                JosefineRaft.__init__, bench_server.run])
+                                JosefineRaft.__init__, bench_server.run, bench_node.run])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -85,6 +91,7 @@ def test_default_device_raises_without_a_card():
                  lambda: RaftEngine(MemKV(), [1, 2, 3], 1, groups=4),
                  lambda: bench_engine.run(4, ticks=1, warmup=1),
                  lambda: JosefineRaft(RaftConfig(), MemKV(), {}, groups=4),
-                 lambda: bench_server.run(4, rounds=1, warmup=1)):
+                 lambda: bench_server.run(4, rounds=1, warmup=1),
+                 lambda: bench_node.run(4, batches=2, traced=1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -22,5 +22,9 @@ globals().update(repointed("test_window", edits=[
      'engines, fsms = make_cluster("torch", sparse=False)'),
     ('engines, _ = make_cluster("jax", sparse=False, hb_ticks=4)',
      'engines, _ = make_cluster("torch", sparse=False, hb_ticks=4)'),
-], leave_out=("test_windowed_chaos_crash_restart_safety",
-              "test_windowed_sparse_chaos_all_features")))
+], leave_out={
+    "test_windowed_chaos_crash_restart_safety":
+        "runs on the JAX package's ChaosCluster (chaos is ROADMAP item 11)",
+    "test_windowed_sparse_chaos_all_features":
+        "runs on the JAX package's ChaosCluster (chaos is ROADMAP item 11)",
+}))

@@ -8,6 +8,7 @@ uint32 bit patterns.
 
 from __future__ import annotations
 
+import asyncio
 import pathlib
 import re
 import types
@@ -15,12 +16,15 @@ import types
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from josefine_tpu.models import chained_raft as jcr
 from josefine_tpu.models.types import step_params as jax_step_params
 from josefine_tpu.raft import packed_step as jps
 from josefine_tpu_torch import interop
+from josefine_tpu_torch.models.types import step_params as port_step_params
+from josefine_tpu_torch.raft.engine import RaftEngine
 
 STATE_NAMES = ("term", "voted_for", "role", "leader", "head.t", "head.s", "commit.t",
                "commit.s", "elapsed", "timeout", "hb_elapsed", "alive", "seed", "votes",
@@ -138,28 +142,167 @@ def jax_view_template(P: int, N: int, me: int):
 
 
 _JAX_IMPORT = re.compile(r"^(\s*(?:from|import)\s+)josefine_tpu(?=[.\s])", re.M)
+# An import of a sibling test module (``from test_integration import ...``):
+# its objects would be the JAX package's, so every such line must be edited
+# away (see :data:`INTEGRATION_EDITS` and the helpers below).
+_SIBLING_IMPORT = re.compile(r"^\s*(?:from|import)\s+test_\w+", re.M)
 
 
-def repointed(name: str, edits=(), leave_out=()) -> dict:
-    """The cases of ``tests/<name>.py``, run against the port.
+def _is_fixture(v) -> bool:
+    return (type(v).__name__ == "FixtureFunctionDefinition"
+            or getattr(v, "_pytestfixturefunction", None) is not None)
 
-    The JAX test module's source has every import of the JAX package
-    re-pointed at the port and each ``(old, new)`` of ``edits`` made (each
-    must match exactly once, so a drift of the original fails here), and
-    runs as a module of its own. Returns its ``test_*`` functions and
-    ``Test*`` classes, less those named in ``leave_out``, for the calling
-    test file to take into its namespace."""
+
+def _port_namespace(name: str, edits) -> dict:
+    """``tests/<name>.py`` run as a module of its own against the port (see
+    :func:`repointed`); returns its namespace."""
     path = pathlib.Path(__file__).with_name(f"{name}.py")
     src = _JAX_IMPORT.sub(r"\1josefine_tpu_torch", path.read_text())
     for old, new in edits:
         assert src.count(old) == 1, f"{name}: {old!r} matches {src.count(old)} times"
         src = src.replace(old, new)
+    sibling = _SIBLING_IMPORT.search(src)
+    assert sibling is None, f"{name}: {sibling.group(0).strip()!r} is left un-replaced"
     ns = {"__name__": f"{name}__on_the_port", "__file__": str(path)}
     exec(compile(src, str(path), "exec"), ns)
     for k, v in ns.items():
         mod = v.__name__ if isinstance(v, types.ModuleType) else getattr(v, "__module__", "")
         assert str(mod).split(".")[0] != "josefine_tpu", f"{name}: {k} is the JAX package's"
-    tests = {k: v for k, v in ns.items()
-             if k.startswith(("test_", "Test")) and k not in leave_out}
+    return ns
+
+
+def repointed(name: str, edits=(), leave_out: dict[str, str] | None = None) -> dict:
+    """The cases of ``tests/<name>.py``, run against the port.
+
+    The JAX test module's source has every import of the JAX package
+    re-pointed at the port and each ``(old, new)`` of ``edits`` made (each
+    must match exactly once, so a drift of the original fails here), and
+    runs as a module of its own. No import of a sibling test module may be
+    left: such a module imports the JAX package. Returns its ``test_*``
+    functions, ``Test*`` classes and fixtures, less the cases named in
+    ``leave_out`` (name -> the reason it is left out), for the calling test
+    file to take into its namespace."""
+    leave_out = leave_out or {}
+    ns = _port_namespace(name, edits)
+    assert all(leave_out.values()), f"{name}: a case is left out without a reason"
     assert set(leave_out) <= set(ns), f"{name}: no {sorted(set(leave_out) - set(ns))}"
-    return tests
+    return {k: v for k, v in ns.items()
+            if (k.startswith(("test_", "Test")) or _is_fixture(v)) and k not in leave_out}
+
+
+# The port's ``tests/test_integration.py``: its ``NodeManager`` builds port
+# nodes with the engine on the host.
+INTEGRATION_EDITS = [
+    ("engine=EngineConfig(partitions=partitions,",
+     'engine=EngineConfig(partitions=partitions, device="cpu",'),
+]
+_integration: dict = {}
+
+
+def __getattr__(name: str):
+    """``NodeManager`` and ``make_batch`` of the port's ``test_integration``,
+    for the suites that import them from that module (``from torch_parity
+    import NodeManager`` in their edits)."""
+    if name in ("NodeManager", "make_batch"):
+        if not _integration:
+            _integration.update(_port_namespace("test_integration", INTEGRATION_EDITS))
+        return _integration[name]
+    raise AttributeError(name)
+
+
+# The port-side copies of ``tests/test_node_chaos.py``'s two Kafka helpers
+# (that module imports the chaos package, which is not ported yet): topic
+# metadata from any live broker, and one produce routed to the leader with
+# bounded retries.
+CHAOS_TOPIC = "crashy"
+
+
+async def _metadata(mgr, exclude=frozenset()):
+    """Topic metadata from any live broker; None if none answer."""
+    from josefine_tpu_torch.kafka import client as kafka_client
+    from josefine_tpu_torch.kafka.codec import ApiKey
+
+    for i, n in enumerate(mgr.nodes):
+        if i in exclude or n is None:
+            continue
+        try:
+            cl = await kafka_client.connect("127.0.0.1", mgr.broker_ports[i])
+            try:
+                return await asyncio.wait_for(
+                    cl.send(ApiKey.METADATA, 1, {"topics": [{"name": CHAOS_TOPIC}]}), 5)
+            finally:
+                await cl.close()
+        except Exception:  # noqa: BLE001 - try the next broker
+            continue
+    return None
+
+
+async def _produce_one(mgr, part: int, payload: bytes, down: set[int]) -> bool:
+    """One client-style produce with leader routing and bounded retries;
+    True only if the broker acknowledged it (error_code 0)."""
+    from josefine_tpu_torch.kafka import client as kafka_client
+    from josefine_tpu_torch.kafka.codec import ApiKey
+
+    make_batch = __getattr__("make_batch")
+    for _ in range(40):
+        md = await _metadata(mgr, exclude=down)
+        parts = (md or {}).get("topics", [{}])[0].get("partitions") or []
+        p = next((p for p in parts if p["partition_index"] == part), None)
+        if p is None or p["leader_id"] < 1 or (p["leader_id"] - 1) in down:
+            await asyncio.sleep(0.25)
+            continue
+        try:
+            cl = await kafka_client.connect(
+                "127.0.0.1", mgr.broker_ports[p["leader_id"] - 1])
+            try:
+                pr = await asyncio.wait_for(cl.send(ApiKey.PRODUCE, 3, {
+                    "transactional_id": None, "acks": -1, "timeout_ms": 5000,
+                    "topics": [{"name": CHAOS_TOPIC, "partitions": [
+                        {"index": part, "records": make_batch(payload, 1)}]}],
+                }), 8)
+                if pr["responses"][0]["partitions"][0]["error_code"] == 0:
+                    return True
+            finally:
+                await cl.close()
+        except Exception:  # noqa: BLE001 - retried, as a client does
+            pass
+        await asyncio.sleep(0.25)
+    return False
+
+
+def host_step_params(*args, **kw):
+    """The port's ``step_params`` on the host, for the suites that build an
+    engine (``from torch_parity import host_step_params as step_params``)."""
+    return port_step_params(*args, device="cpu", **kw)
+
+
+class HostRaftEngine(RaftEngine):
+    """The port's engine with its state on the host unless told otherwise,
+    for the suites that build engines (``from torch_parity import
+    HostRaftEngine as RaftEngine``)."""
+
+    def __init__(self, *args, device="cpu", **kw):
+        super().__init__(*args, device=device, **kw)
+
+
+@pytest.fixture(autouse=True)
+def only_port_nodes(monkeypatch):
+    """Taken into a test file's namespace, fails every case there that
+    builds a node of the JAX package; yields the port nodes each case
+    builds."""
+    import josefine_tpu.node as jax_node
+    from josefine_tpu_torch import node as port_node
+
+    def refuse(self, *args, **kw):
+        raise AssertionError("a re-pointed suite built a node of the JAX package")
+
+    built = []
+    port_init = port_node.Node.__init__
+
+    def record(self, *args, **kw):
+        port_init(self, *args, **kw)
+        built.append(self)
+
+    monkeypatch.setattr(jax_node.Node, "__init__", refuse)
+    monkeypatch.setattr(port_node.Node, "__init__", record)
+    yield built
