@@ -66,7 +66,7 @@ Phases (any failure raises, and the script exits non-zero without a result):
    rounds, and prints the numbers of 5b plus the active set's counts.
 7. device-resident delivery on the card (``raft/route.py``, the payload
    ring, leases; PyTorch ops only, no hand kernel). 7a: clusters on a
-   ``RouteFabric`` (payload ring of 8 slots x 512 bytes), 110 single ticks,
+   ``RouteFabric`` (payload ring of 8 slots x 512 bytes), 80 single ticks,
    two payloads per proposal: dense IO at P = 4096 with AppendEntries capped
    at 2 blocks, engine 2 cut off for 10 ticks and leases on, then sparse IO
    and sparse IO plus the active set at P = 8192. On every tick a card
@@ -124,6 +124,29 @@ Phases (any failure raises, and the script exits non-zero without a result):
    acknowledged records/s and MB/s, produce and fetch latency at the client,
    each node's ms per tick, host ms per engine phase, raft frames and bytes
    per tick and the card's idle share.
+10. chaos and traffic on the card (``chaos/``, ``workload/``; PyTorch ops
+   only, no hand kernel). 10a: the chaos soak (``run_soak``, seed 7,
+   ``leader-partition``, horizon 200: the JAX package's three CI chaos
+   smokes, with ``flight_wire``; with the active set at 8 groups and
+   ``hb_ticks=4``; with ``device_route``, ``payload_ring``, a quiet net, 4
+   groups and 4 workload tenants at 2 produces per tick) with its engines on
+   the card and on the CPU: every field of the two results equal (event
+   log, journals, timeline, coverage, state digest, acked and proposed,
+   health, route and active-set statistics, registry), invariants ok; then
+   the wire soak (``run_wire_soak``, seed 7, ``wire-leader-partition``,
+   three nodes over loopback TCP), card against CPU: equal fate logs, wire
+   event logs, journals and coverage, every acknowledged produce consumed
+   back. Every card engine begins its ticks under sync debug "error" (only
+   the active set's counted refetch may wait). 10b: the traffic driver
+   (``TrafficEngine``, replication 3: the broker engine and two replicas,
+   skew 1.1, 64 produces per tick, seed 7): at 100 tenants x 1,000
+   partitions for 120 ticks the card and the CPU give the same workload
+   trace and summary; then ``tools/traffic_soak.py``'s documented
+   ``--tenants 1000 --partitions 10000`` (P = 10,001, sparse IO) for 200
+   ticks and the driver's drain: no error, every commit replicated and
+   timed, one leader per claimed row; it prints the boot time, ms per tick,
+   committed batches/s, commit latency in ticks, host ms per engine phase,
+   the card's idle share over 5 traced ticks and the trace sha256.
 
 Each phase prints the seconds since the start when it ends. The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
@@ -283,6 +306,54 @@ def _fabric_view(fab) -> dict:
             "ready": {s: arr(p) for s, p in sorted(fab._ready.items())}}
 
 
+class _StrictCardTicks:
+    """While active, every card engine's ``tick_begin`` runs under CUDA's
+    sync debug mode set to error, so a host wait inside it raises, but for
+    the active set's counted refetch (``_refetch_wake_inputs``). Patched on
+    the class, so it reaches engines the harnesses build and rebuild
+    themselves (restarts, nodes, replicas). Counts the card ticks begun."""
+
+    def __enter__(self):
+        import torch
+
+        from josefine_tpu_torch.raft.engine import RaftEngine
+
+        self.begun = 0
+        self._saved = (RaftEngine.tick_begin, RaftEngine._refetch_wake_inputs)
+        begin, refetch = self._saved
+        outer = self
+
+        def strict_begin(e, *args, **kw):
+            if e._device.type != "cuda":
+                return begin(e, *args, **kw)
+            outer.begun += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return begin(e, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        def counted_refetch(e, *args, **kw):
+            if e._device.type != "cuda":
+                return refetch(e, *args, **kw)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return refetch(e, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        RaftEngine.tick_begin = strict_begin
+        RaftEngine._refetch_wake_inputs = counted_refetch
+        return self
+
+    def __exit__(self, *exc):
+        from josefine_tpu_torch.raft.engine import RaftEngine
+
+        RaftEngine.tick_begin, RaftEngine._refetch_wake_inputs = self._saved
+        return False
+
+
 def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
                cut=lambda t: (), setup=None, on_tick=None, params_kw=None, bursts=1):
     """Clusters of 3 engines fed the same traffic for ``ticks`` split-phase
@@ -303,7 +374,7 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
     entries equal side ``i``'s host entries plus its routed rows. A card
     engine's ``tick_begin`` runs under CUDA's sync debug mode set to error,
     so a host wait inside it raises, except the active set's counted
-    refetch (``_refetch_wake_inputs``). On every fabric the route
+    refetch (:class:`_StrictCardTicks`). On every fabric the route
     scatter's source must be the sender step's own output, on the fabric's
     device.
     ``setup(engine)`` runs on every engine before the first tick,
@@ -314,7 +385,6 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
     import asyncio
 
     import numpy as np
-    import torch
 
     from josefine_tpu_torch import interop
     from josefine_tpu_torch.models.types import step_params
@@ -355,27 +425,6 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
             return src
 
         fab._src_ov = src_ov
-
-    def allow_refetch(e):
-        inner = e._refetch_wake_inputs
-
-        def refetch():
-            torch.cuda.set_sync_debug_mode("default")
-            try:
-                return inner()
-            finally:
-                torch.cuda.set_sync_debug_mode("error")
-
-        e._refetch_wake_inputs = refetch
-
-    def begin(e, w):
-        if not e.state.term.is_cuda:
-            return e.tick_begin(w)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return e.tick_begin(w)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
 
     def mirrors(e):
         return {k: v for k, v in vars(e).items()
@@ -423,12 +472,10 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
 
     async def run():
         built = [cluster(dev, kw, fkw) for dev, kw, fkw, _ in sides]
-        for engines, _, _ in built:
-            for e in engines:
-                if setup is not None:
+        if setup is not None:
+            for engines, _, _ in built:
+                for e in engines:
                     setup(e)
-                if e.state.term.is_cuda:
-                    allow_refetch(e)
         rng = np.random.default_rng(seed)
         sent = 0
         for t in range(ticks):
@@ -436,7 +483,7 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
             before = [[e.routed_msgs for e in engines] for engines, _, _ in built]
             results = []
             for engines, _, _ in built:
-                hs = [begin(e, e.suggest_window(window(t))) for e in engines]
+                hs = [e.tick_begin(e.suggest_window(window(t))) for e in engines]
                 results.append([e.tick_finish(h) for e, h in zip(engines, hs)])
             sent += sum(len(r.outbound) for r in results[0])
             for (engines, _, fab), res in zip(built, results):
@@ -468,7 +515,8 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
             raise AssertionError("engine parity: group 0's FSMs differ or applied nothing")
         return [(engines, fab) for engines, _, fab in built], applied[0], sent, src_checks[0]
 
-    return asyncio.run(run())
+    with _StrictCardTicks():
+        return asyncio.run(run())
 
 
 def _twin_run(dev, P: int, ticks: int, seed: int, window=lambda t: 1, cut=lambda t: (),
@@ -604,7 +652,7 @@ def engine_parity_scale(dev, P: int = 8192, ticks: int = 70) -> None:
         print(f"{line}; {seconds:.1f} s", flush=True)
 
 
-def route_parity(dev, P_dense: int = 4096, P_scale: int = 8192, ticks: int = 110) -> None:
+def route_parity(dev, P_dense: int = 4096, P_scale: int = 8192, ticks: int = 80) -> None:
     """Phase 7a: device-resident delivery (``raft/route.py``, the payload
     ring on: 8 slots of 512 bytes) through :func:`_run_sides`, two payloads
     per proposal so AppendEntries carry spans of several blocks.
@@ -836,23 +884,6 @@ def server_bench(card: str, beside) -> None:
                       f"{row['ms_per_tick'] / other['ms_per_tick']:.3f}x [{card}]", flush=True)
 
 
-def _strict_tick_begin(e) -> None:
-    """Run a card engine's ``tick_begin`` under CUDA's sync debug mode set to
-    error: a host wait inside it raises."""
-    import torch
-
-    inner = e.tick_begin
-
-    def begin(window: int = 1):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return inner(window)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-
-    e.tick_begin = begin
-
-
 def node_parity(dev, P: int = 32, partitions: int = 8) -> None:
     """Phase 9a: three port nodes on ``dev`` and three on the CPU (``P``
     engine rows, KV in memory) given ``node_lockstep.run_kafka_script``
@@ -865,8 +896,6 @@ def node_parity(dev, P: int = 32, partitions: int = 8) -> None:
     runs under sync debug "error"."""
     import pathlib
     import tempfile
-
-    import torch
 
     from josefine_tpu_torch import config, interop, node_lockstep
     from josefine_tpu_torch.broker import handlers
@@ -886,14 +915,11 @@ def node_parity(dev, P: int = 32, partitions: int = 8) -> None:
             sides = node_lockstep.build_sides(
                 [kit, kit], pacer, root, partitions=P, seed=11, raft_extra=extra,
                 engine_kws=[{"device": str(dev)}, {"device": "cpu"}])
-            if dev.type == "cuda":
-                for n in sides[0].nodes:
-                    _strict_tick_begin(n.raft.engine)
             with node_lockstep.seeded([kit, kit]):
                 return await node_lockstep.run_kafka_script(
                     sides, pacer, seed=7, step=step, partitions=partitions)
 
-        with tempfile.TemporaryDirectory(prefix="node_parity_") as td:
+        with tempfile.TemporaryDirectory(prefix="node_parity_") as td, _StrictCardTicks():
             stats = lockstep.run(main(pathlib.Path(td)))
         if stats["stopped"] is None or stats["acked"] != 4 * partitions or (step > 1) != bool(
                 stats["strided"]):
@@ -988,6 +1014,261 @@ def engine_bench(card: str, P: int = 4096, **kw) -> dict:
     elif row["sparse_io"]:
         print(f"engine path ({mode}), capacity history [round, k_out] per engine: "
               f"{row['k_out_history']} [{card}]", flush=True)
+    return row
+
+
+def _fresh_registry() -> None:
+    """Zero the process-global metrics registry and collect the engines of
+    earlier runs (their scrape hooks would publish into the next dump)."""
+    import gc
+
+    from josefine_tpu_torch.utils.metrics import REGISTRY
+
+    gc.collect()
+    REGISTRY.reset()
+
+
+def _first_difference(got: dict, want: dict, keys=None) -> str | None:
+    for key in keys or sorted(set(got) | set(want)):
+        if got.get(key) != want.get(key):
+            return (f"{key}: card {str(got.get(key))[:300]!r} cpu "
+                    f"{str(want.get(key))[:300]!r}")
+    return None
+
+
+# Phase 10a's soaks: the JAX package's CI chaos smokes (tools/ci.sh), seed 7.
+CHAOS_SMOKES = (
+    ("chaos smoke", dict(horizon=200, flight_wire=True)),
+    ("chaos smoke (active-set)", dict(horizon=200, active_set=True, groups=8, hb_ticks=4)),
+    ("chaos smoke (device-route)", dict(
+        horizon=200, device_route=True, payload_ring=True, quiet_net=True, groups=4,
+        workload={"tenants": 4, "produce_per_tick": 2.0, "skew": 1.1})),
+)
+# The wire soak's artifacts that must be equal (its driver counters pace
+# consumer-group rebalances on the wall clock).
+WIRE_ARTIFACTS = ("invariants", "violation", "fate_log", "event_log", "journals",
+                  "fault_event_log", "coverage_signature", "offered", "produced", "consumed",
+                  "health")
+
+
+def chaos_parity(dev, smokes=CHAOS_SMOKES, wire: bool = True) -> None:
+    """Phase 10a: the port's chaos soak (``chaos/soak.py run_soak``, seed 7,
+    ``leader-partition``) with its engines on ``dev`` and on the CPU, in each
+    configuration of ``smokes``: every field of the two results must be
+    equal (event log, journals, timeline, coverage, state digest, acked and
+    proposed, health, the route and active-set statistics, the registry
+    dump, ...), invariants "ok". Then the wire soak (``run_wire_soak``,
+    ``wire-leader-partition``, three nodes over loopback TCP): equal
+    ``WIRE_ARTIFACTS``. Card engines begin every tick under sync debug
+    "error" (:class:`_StrictCardTicks`)."""
+    from josefine_tpu_torch.chaos.faults import NetFaults
+    from josefine_tpu_torch.chaos.soak import run_soak
+    from josefine_tpu_torch.chaos.wire_soak import run_wire_soak
+
+    def soak(device, kw):
+        kw = dict(kw)
+        net = NetFaults.quiet() if kw.pop("quiet_net", False) else None
+        _fresh_registry()
+        return run_soak(7, "leader-partition", net=net, device=str(device), **kw)
+
+    for name, kw in smokes:
+        t0 = time.perf_counter()
+        with _StrictCardTicks() as strict:
+            card = soak(dev, kw)
+        t_card = time.perf_counter() - t0
+        cpu = soak("cpu", kw)
+        diff = _first_difference(card, cpu)
+        if diff:
+            raise AssertionError(f"chaos parity ({name}): {diff}")
+        if card["invariants"] != "ok":
+            raise AssertionError(f"chaos parity ({name}): {card['violation']}")
+        if card["acked"] <= 0 or card["fault_events"] <= 0:
+            raise AssertionError(f"chaos parity ({name}): {card['acked']} acked, "
+                                 f"{card['fault_events']} fault events")
+        extra = ""
+        if kw.get("active_set"):
+            st = card["active_set_stats"]
+            if st["compacted_ticks"] <= 0:
+                raise AssertionError(f"chaos parity ({name}): no compacted tick {st}")
+            extra = f"; active set {json.dumps(st)}"
+        if kw.get("device_route"):
+            st = card["device_route_stats"]
+            if st["routed_msgs"] <= 0 or card["workload_stats"]["acked"] <= 0:
+                raise AssertionError(f"chaos parity ({name}): {st}")
+            extra = (f"; routed {st['routed_msgs']} host {st['host_msgs']}, ring "
+                     f"{json.dumps(st['ring'])}; workload acked "
+                     f"{card['workload_stats']['acked']}")
+        if kw.get("flight_wire") and not card["coverage"]["class_counts"].get("path_mix"):
+            raise AssertionError(f"chaos parity ({name}): no path_mix coverage")
+        print(f"chaos parity ok ({name}): seed 7, leader-partition, {card['ticks']} ticks, "
+              f"3 nodes x {card['groups']} groups: the soak on the {dev.type} == the soak on "
+              f"the CPU in every field ({len(card)} fields: event log, journals, timeline, "
+              f"coverage signature {card['coverage_signature'][:16]}, state digest "
+              f"{str(card['state_digest'])[:16]}, health, registry, ...); invariants ok; "
+              f"{card['proposed']} proposed, {card['acked']} acked, {card['fault_events']} "
+              f"fault events{extra}; {strict.begun} card ticks begun under sync debug error; "
+              f"{t_card:.1f} s on the {dev.type}, {time.perf_counter() - t0 - t_card:.1f} s "
+              f"on the CPU", flush=True)
+    if not wire:
+        return
+    t0 = time.perf_counter()
+    with _StrictCardTicks() as strict:
+        card = run_wire_soak(7, "wire-leader-partition", n_nodes=3, device=str(dev))
+    t_card = time.perf_counter() - t0
+    cpu = run_wire_soak(7, "wire-leader-partition", n_nodes=3, device="cpu")
+    diff = _first_difference(card, cpu, WIRE_ARTIFACTS)
+    if diff:
+        raise AssertionError(f"wire chaos parity: {diff}")
+    if card["invariants"] != "ok" or not 0 < card["produced"] == card["consumed"]:
+        raise AssertionError(f"wire chaos parity: {card['violation']}, produced "
+                             f"{card['produced']}, consumed {card['consumed']}")
+    fates = sorted({k for v in card["fate_log"].values() for k in v})
+    print(f"wire chaos parity ok: seed 7, wire-leader-partition, 3 nodes over loopback TCP, "
+          f"{card['ticks']} ticks: the soak on the {dev.type} == the soak on the CPU in "
+          f"{', '.join(WIRE_ARTIFACTS)}; invariants ok; {card['produced']} produces acked and "
+          f"consumed back; fates {fates}; {strict.begun} card ticks begun under sync debug "
+          f"error; {t_card:.1f} s on the {dev.type}, "
+          f"{time.perf_counter() - t0 - t_card:.1f} s on the CPU", flush=True)
+
+
+def _traffic_engine(device, tenants: int, partitions: int):
+    from josefine_tpu_torch.workload.driver import TrafficEngine
+    from josefine_tpu_torch.workload.model import WorkloadSpec
+
+    spec = WorkloadSpec.from_axes(tenants, partitions, skew=1.1, load=64)
+    return TrafficEngine(spec, seed=7, replication=3, device=str(device))
+
+
+def _traffic_gates(drv, s: dict, what: str) -> None:
+    """10b's gates: no error, every commit replicated and timed, one leader
+    per claimed row (and the metadata row) across the three engines."""
+    if s["backpressure"]["errors"] != 0:
+        raise AssertionError(f"{what}: errors {s['backpressure']}")
+    if not 0 < s["committed"] == s["path_stats"]["replicated"]:
+        raise AssertionError(f"{what}: committed {s['committed']}, {s['path_stats']}")
+    if s["latency_ticks"]["n"] != s["committed"]:
+        raise AssertionError(f"{what}: {s['latency_ticks']['n']} latencies for "
+                             f"{s['committed']} commits")
+    rows = [0, *sorted(drv._boot_claims)]
+    bad = [g for g in rows if sum(e.is_leader(g) for e in drv.engines) != 1]
+    if bad:
+        raise AssertionError(f"{what}: rows without exactly one leader: {bad[:10]}")
+
+
+def traffic_parity(dev, tenants: int = 100, partitions: int = 1000, ticks: int = 120) -> None:
+    """Phase 10b, first part: the traffic driver (``workload/driver.py``
+    ``TrafficEngine``, replication 3, seed 7) with its engines on ``dev``
+    and on the CPU: the same workload trace (sha256) and the same summary;
+    10b's gates on both."""
+    import asyncio
+
+    out = []
+    for device in (dev, "cpu"):
+        _fresh_registry()  # the summary reads the engine's registry histogram
+        t0 = time.perf_counter()
+        with _StrictCardTicks() as strict:
+            drv = _traffic_engine(device, tenants, partitions)
+            s = asyncio.run(drv.run(ticks))
+        _traffic_gates(drv, s, f"traffic parity ({device})")
+        out.append((drv, s, time.perf_counter() - t0, strict.begun))
+    (card, s, t_card, begun), (cpu, s_cpu, t_cpu, _) = out
+    if card.trace.jsonl() != cpu.trace.jsonl():
+        raise AssertionError(f"traffic parity: trace {s['trace_sha256']} on the {dev.type}, "
+                             f"{s_cpu['trace_sha256']} on the CPU")
+    diff = _first_difference(s, s_cpu)
+    if diff:
+        raise AssertionError(f"traffic parity: summary {diff}")
+    print(f"traffic parity ok: {tenants} tenants x {partitions} partitions, replication 3, "
+          f"skew 1.1, 64 produces per tick, {ticks} ticks (+ drain, {s['ticks']} in all): the "
+          f"driver on the {dev.type} == on the CPU, trace sha256 {s['trace_sha256']} "
+          f"({s['trace_events']} events) and every summary field; {s['committed']} batches "
+          f"committed of {s['offered']} offered; {begun} card ticks begun under sync debug "
+          f"error; {t_card:.1f} s on the {dev.type}, {t_cpu:.1f} s on the CPU", flush=True)
+
+
+def traffic_bench(card: str, tenants: int = 1000, partitions: int = 10_000, ticks: int = 200,
+                  device="cuda") -> dict:
+    """Phase 10b at ``tools/traffic_soak.py``'s documented scale
+    (``--tenants 1000 --partitions 10000``: skew 1.1, 64 produces per tick,
+    seed 7) with replication 3: the broker engine and two replicas at
+    P = 10,001 (sparse IO). Boot (topic creation, every row elected), then
+    5 ticks under ``torch.profiler`` (the card's idle share), then
+    the rest of the ``ticks`` and the driver's drain timed, with 10b's
+    gates. Prints ms per tick, committed batches/s, commit latency, host ms
+    per engine phase, the idle share and the trace sha256."""
+    import asyncio
+
+    import torch
+
+    dev = torch.device(device)
+    drv = _traffic_engine(dev, tenants, partitions)
+    traced, busy = 5, None
+
+    async def soak():
+        nonlocal busy
+        t0 = time.perf_counter()
+        await drv.start()
+        boot_s = time.perf_counter() - t0
+        if dev.type == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            from josefine_tpu_torch.bench_engine import _busy_ms
+
+            torch.cuda.synchronize(dev)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for _ in range(traced):
+                    await drv._tick_once()
+                torch.cuda.synchronize(dev)
+                wall_ms = (time.perf_counter() - t) * 1e3
+            busy_ms = _busy_ms(prof.events())
+            busy = {"ticks": traced, "wall_ms": wall_ms, "busy_ms": busy_ms,
+                    "idle_share": 1 - busy_ms / wall_ms}
+        else:
+            for _ in range(traced):
+                await drv._tick_once()
+        for e in drv.engines:
+            e.enable_profiling().reset()
+        tick0, committed0, t1 = drv.tick, drv.n_committed, time.perf_counter()
+        await drv.run_ticks(ticks - traced)
+        return boot_s, drv.tick - tick0, drv.n_committed - committed0, time.perf_counter() - t1
+
+    with _StrictCardTicks() as strict:
+        boot_s, timed_ticks, timed_committed, wall_s = asyncio.run(soak())
+    s = drv.summary()
+    _traffic_gates(drv, s, "traffic bench")
+    phases: dict = {}
+    for e in drv.engines:
+        for phase, st in e.profiler.snapshot().items():
+            phases[phase] = phases.get(phase, 0.0) + st["total_ms"] / timed_ticks
+    lat = s["latency_ticks"]
+    row = {"tenants": tenants, "partitions": partitions, "engine_rows": drv.engine.P,
+           "replication": 3, "seed": 7, "ticks": s["ticks"], "timed_ticks": timed_ticks,
+           "sparse_io": drv.engine._sparse, "boot_s": boot_s,
+           "ms_per_tick": wall_s * 1e3 / timed_ticks,
+           "committed": s["committed"], "offered": s["offered"],
+           "committed_batches_per_sec": timed_committed / wall_s,
+           "latency_ticks": lat, "backpressure": s["backpressure"],
+           "profile_ms_per_tick": dict(sorted(phases.items())), "device_busy": busy,
+           "trace_sha256": s["trace_sha256"], "card_ticks_begun": strict.begun,
+           "device": card}
+    print(json.dumps(row), flush=True)
+    print(f"traffic path (in-process driver, real broker handlers): {tenants} tenants x "
+          f"{partitions} partitions, replication 3 (P = {drv.engine.P} x 3 engines, "
+          f"{'sparse' if drv.engine._sparse else 'dense'} IO), skew 1.1, 64 produces per "
+          f"tick, seed 7: boot {boot_s:.1f} s; "
+          f"{timed_ticks} timed ticks ({ticks - traced} offered + drain) at "
+          f"{row['ms_per_tick']:.3f} ms/tick; {s['committed']} batches committed of "
+          f"{s['offered']} offered ({row['committed_batches_per_sec']:.6g} committed "
+          f"batches/s over the timed ticks), commit latency p50 {lat['p50']} p99 {lat['p99']} "
+          f"ticks (n {lat['n']}); backpressure {json.dumps(s['backpressure'])}; host ms per "
+          f"tick (3 engines): " + ", ".join(f"{k} {v:.3f}" for k, v in row[
+              "profile_ms_per_tick"].items()) + f"; trace sha256 {s['trace_sha256']} [{card}]",
+          flush=True)
+    if busy is not None:
+        print(f"traffic path, card over {traced} traced ticks: {busy['busy_ms']:.3f} ms busy "
+              f"of {busy['wall_ms']:.3f} ms, idle share {busy['idle_share']:.6f} [{card}]",
+              flush=True)
     return row
 
 
@@ -1241,6 +1522,12 @@ def main() -> int:
     node_parity(dev)
     node_bench(card)
     phase_done(9)
+
+    # ---- 10. chaos and traffic: the chaos soak and the traffic driver ----
+    chaos_parity(dev)
+    traffic_parity(dev)
+    traffic_bench(card)
+    phase_done(10)
 
     print(json.dumps({"kernels": [{
         "name": "fused_window",

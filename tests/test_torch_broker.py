@@ -16,27 +16,17 @@ fixture differs from ``test_broker_handlers``'s by the same name. A case
 that builds a node of the JAX package fails (``only_port_nodes``).
 """
 
-from torch_parity import only_port_nodes, repointed  # noqa: F401
+from torch_parity import HOST, only_port_nodes, repointed  # noqa: F401
 
-_ON_THE_HOST = [
-    ("from josefine_tpu_torch.models.types import step_params",
-     "from torch_parity import host_step_params as step_params"),
-    ("from josefine_tpu_torch.raft.engine import RaftEngine",
-     "from torch_parity import HostRaftEngine as RaftEngine"),
-]
+_ON_THE_HOST = [HOST["step_params"], HOST["RaftEngine"]]
 
 _cases = [
     repointed("test_broker_state"),
     repointed("test_broker_handlers"),
     repointed("test_log"),
-    repointed("test_wire_fetch", leave_out={
-        "test_chunked_writes_tear_identically":
-            "drives the JAX package's chaos WirePlane (chaos is ROADMAP item 11)",
-    }),
+    repointed("test_wire_fetch"),
     repointed("test_durability"),
-    repointed("test_idempotent_produce", edits=[
-        ("from test_integration import NodeManager", "from torch_parity import NodeManager"),
-    ]),
+    repointed("test_idempotent_produce", edits=[HOST["NodeManager"]]),
     repointed("test_partition_compaction", edits=_ON_THE_HOST),
 ]
 _names = [set(c) - {"broker"} for c in _cases]

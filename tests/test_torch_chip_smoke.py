@@ -1,6 +1,6 @@
 """The tick-loop instruction count behind ``chip_smoke.py``'s kernel bound,
 on a small hand-written SASS listing in ``cuobjdump`` format; and phases 6a,
-7a and 8 rehearsed on the host."""
+7a, 8, 9 and 10 rehearsed on the host."""
 
 import types
 
@@ -133,3 +133,30 @@ def test_node_bench_runs_on_the_host():
     assert len(row["ms_per_tick"]) == 3 and row["frames_per_tick"] > 0
     assert {"dispatch", "apply", "decode"} <= set(row["profile_phases"])
     assert row["engine_partitions"] == 128 and row["device_busy"] is None
+
+
+def test_chaos_parity_runs_on_the_host(capsys):
+    """Phase 10a's first soak (the chaos smoke: seed 7, leader-partition,
+    horizon 200, flight_wire) with both sides on the host: every field of
+    the two results equal, invariants ok, coverage with the path mix."""
+    chip_smoke.chaos_parity(torch.device("cpu"), smokes=chip_smoke.CHAOS_SMOKES[:1],
+                            wire=False)
+    assert capsys.readouterr().out.count("chaos parity ok (chaos smoke)") == 1
+
+
+def test_traffic_parity_runs_on_the_host(capsys):
+    """Phase 10b's twin at a small size with both sides on the host: the
+    same trace and summary, and 10b's gates on both."""
+    chip_smoke.traffic_parity(torch.device("cpu"), tenants=20, partitions=100, ticks=40)
+    assert capsys.readouterr().out.count("traffic parity ok") == 1
+
+
+def test_traffic_bench_runs_on_the_host():
+    """Phase 10b's bench at a toy size on the host: the gates hold and the
+    row carries the numbers phase 10 prints."""
+    row = chip_smoke.traffic_bench("cpu", tenants=20, partitions=100, ticks=20, device="cpu")
+    assert row["engine_rows"] == 101 and row["committed"] > 0
+    assert row["timed_ticks"] >= 15 and row["ms_per_tick"] > 0
+    assert {"dispatch", "apply", "decode"} <= set(row["profile_ms_per_tick"])
+    assert row["device_busy"] is None and row["card_ticks_begun"] == 0
+    assert row["backpressure"]["errors"] == 0

@@ -27,6 +27,13 @@ MODULES = [
     "broker/partition_fsm.py", "broker/groups.py", "broker/handlers.py",
     "broker/server.py",
     "node.py", "__main__.py",
+    "utils/coverage.py",
+    "chaos/__init__.py", "chaos/faults.py", "chaos/invariants.py", "chaos/nemesis.py",
+    "chaos/harness.py", "chaos/soak.py", "chaos/wire.py", "chaos/wire_soak.py",
+    "chaos/search.py",
+    "workload/__init__.py", "workload/model.py", "workload/schedule.py",
+    "workload/trace.py", "workload/genome.py", "workload/chaos_traffic.py",
+    "workload/driver.py", "workload/wire.py",
 ]
 NATIVE_SOURCES = ["native/src/kafka_codec.cpp", "native/src/seglog.cpp"]
 
@@ -116,6 +123,156 @@ DIFFERENCES: dict[str, list[tuple[str, str, str]]] = {
         "Chained-Raft consensus on an NVIDIA card through PyTorch)",'''),
     ],
 }
+# The chaos and workload planes: the port's entry points take the engines'
+# device (the card unless told otherwise) and build their step params on
+# the host, because the port's ``step_params`` allocates on the card by
+# default and a module-level call would need a card at import; every
+# engine moves its params to its own device.
+_HOST_PARAMS = ("Module-level step params are built on the host: importing the port "
+                "allocates nothing on a device, and RaftEngine moves params to its own "
+                "device.")
+_SOAK_HOST_PARAMS = ("The soak's step params are built on the host; the engines move "
+                     "them to their device.")
+_CHAOS_DEVICE = ("The port's chaos harness takes the engines' device: the card by "
+                 "default, the host where the caller says \"cpu\".")
+_TRAFFIC_DEVICE = ("The port's traffic driver takes the engines' device (the card by "
+                   "default) and builds its step params on the host.")
+_TRAFFIC_PEER_PARAMS = """                       params=step_params(timeout_min=1 << 20,
+                                          timeout_max=(1 << 20) + 8,
+                                          hb_ticks=hb_ticks),
+                       base_seed=seed + nid, backend=backend)"""
+_NO_CHANGE_NUMBERS = "The port's copies name no change numbers from the reference's history."
+DIFFERENCES.update({
+    "chaos/wire.py": [
+        (_NO_CHANGE_NUMBERS,
+         "PR 1's :class:`~josefine_tpu.chaos.faults.FaultPlane` injects faults into",
+         "The :class:`~josefine_tpu.chaos.faults.FaultPlane` injects faults into"),
+    ],
+    "chaos/harness.py": [
+        (_NO_CHANGE_NUMBERS,
+         "where the plane applies its fates, exactly like PR 6 kinds).",
+         "where the plane applies its fates, exactly like payload-free kinds)."),
+        (_HOST_PARAMS,
+         "DEFAULT_PARAMS = step_params(timeout_min=3, timeout_max=8, hb_ticks=1)",
+         'DEFAULT_PARAMS = step_params(timeout_min=3, timeout_max=8, hb_ticks=1,\n'
+         '                             device="cpu")'),
+        (_HOST_PARAMS,
+         "LEASE_PARAMS = step_params(timeout_min=4, timeout_max=8, hb_ticks=1)",
+         'LEASE_PARAMS = step_params(timeout_min=4, timeout_max=8, hb_ticks=1,\n'
+         '                           device="cpu")'),
+        (_CHAOS_DEVICE,
+         "                 health: bool = True):\n        self.plane = plane or",
+         '                 health: bool = True, device="cuda"):\n'
+         "        # The engines' device: the card unless the caller says \"cpu\".\n"
+         "        self.device = device\n        self.plane = plane or"),
+        (_CHAOS_DEVICE,
+         "            flight_lease=self.leases,\n        )",
+         "            flight_lease=self.leases,\n            device=self.device,\n        )"),
+        (_CHAOS_DEVICE,
+         "    def __init__(self, seed: int, groups: int = 2):\n",
+         '    def __init__(self, seed: int, groups: int = 2, device="cuda"):\n'
+         "        self.device = device\n"),
+        (_CHAOS_DEVICE,
+         "            snapshot_threshold=5, max_nodes=self.MAX,\n",
+         "            snapshot_threshold=5, max_nodes=self.MAX, device=self.device,\n"),
+    ],
+    "chaos/soak.py": [
+        (_CHAOS_DEVICE,
+         "                         health: bool = True) -> dict:",
+         '                         health: bool = True, device="cuda") -> dict:'),
+        (_SOAK_HOST_PARAMS,
+         "                             hb_ticks=hb)",
+         '                             hb_ticks=hb, device="cpu")'),
+        (_SOAK_HOST_PARAMS,
+         "            timeout_min=3, timeout_max=8, hb_ticks=hb_ticks)",
+         '            timeout_min=3, timeout_max=8, hb_ticks=hb_ticks, device="cpu")'),
+        (_CHAOS_DEVICE,
+         "                           health=health)",
+         "                           health=health, device=device)"),
+    ],
+    "chaos/wire_soak.py": [
+        ("Without a card the default device raises before the soak binds sockets or "
+         "makes its directory.",
+         "    sched = resolve_wire_schedule(schedule, n_nodes)\n"
+         "    plane = FaultPlane(seed, n_nodes, net=NetFaults.quiet())\n",
+         "    resolve_device(device)  # no card: raise before any socket or directory\n"
+         "    sched = resolve_wire_schedule(schedule, n_nodes)\n"
+         "    plane = FaultPlane(seed, n_nodes, net=NetFaults.quiet())\n"),
+        ("Without a card the default device raises before the soak binds sockets or "
+         "makes its directory.",
+         "from josefine_tpu_torch.chaos.wire import NodeShim, WirePlane\n",
+         "from josefine_tpu_torch.chaos.wire import NodeShim, WirePlane\n"
+         "from josefine_tpu_torch.models.types import resolve_device\n"),
+        (_CHAOS_DEVICE,
+         "                 broker_overrides: dict | None = None):",
+         '                 broker_overrides: dict | None = None, device="cuda"):'),
+        (_CHAOS_DEVICE,
+         "                engine=EngineConfig(partitions=partitions),",
+         "                engine=EngineConfig(partitions=partitions, device=device),"),
+        (_CHAOS_DEVICE,
+         "                              health: bool = True) -> dict:",
+         '                              health: bool = True,\n'
+         '                              device="cuda") -> dict:'),
+        (_CHAOS_DEVICE,
+         "                          tick_ms=tick_ms, request_spans=request_spans)",
+         "                          tick_ms=tick_ms, request_spans=request_spans,\n"
+         "                          device=device)"),
+    ],
+    "chaos/search.py": [
+        (_CHAOS_DEVICE,
+         "                 migration: bool = False, leases: bool = False):\n"
+         "        self.seed = seed",
+         "                 migration: bool = False, leases: bool = False,\n"
+         '                 device="cuda"):\n'
+         "        # Every candidate soak runs its engines on this device (not in\n"
+         "        # soak_config: the card and the host give equal runs). Without\n"
+         "        # a card the default raises here, not at the first soak.\n"
+         "        self.device = str(resolve_device(device))\n"
+         "        self.seed = seed"),
+        (_CHAOS_DEVICE,
+         "from josefine_tpu_torch.chaos.soak import run_soak\n",
+         "from josefine_tpu_torch.chaos.soak import run_soak\n"
+         "from josefine_tpu_torch.models.types import resolve_device\n"),
+        (_CHAOS_DEVICE,
+         "                artifact_path=os.devnull, **self.wire_opts)",
+         "                artifact_path=os.devnull, device=self.device,\n"
+         "                **self.wire_opts)"),
+        (_CHAOS_DEVICE,
+         "            leases=self.leases,\n            # Search runs",
+         "            leases=self.leases, device=self.device,\n            # Search runs"),
+    ],
+    "workload/driver.py": [
+        (_NO_CHANGE_NUMBERS,
+         "measurement PR 12 records in BENCH_traffic.json. Replica leadership is",
+         "measurement recorded in BENCH_traffic.json. Replica leadership is"),
+        (_NO_CHANGE_NUMBERS,
+         "        # Live migration (ISSUE 16): the metadata FSM's reassignment",
+         "        # Live migration: the metadata FSM's reassignment"),
+        (_NO_CHANGE_NUMBERS,
+         "at the same receiver tick (the PR 6\n            # byte-identity barrier;",
+         "at the same receiver tick (the fabric's\n            # byte-identity barrier;"),
+        ("The port's engines take only the \"torch\" and \"python\" backends: the "
+         "default is \"torch\", and \"jax\" is refused by the engine, as by the port's "
+         "config.",
+         'hb_ticks: int = 1, backend: str = "jax",',
+         'hb_ticks: int = 1, backend: str = "torch",'),
+        (_TRAFFIC_DEVICE,
+         "                 health: bool = False):\n        self.spec = spec.validate()",
+         '                 health: bool = False, device="cuda"):\n'
+         "        self.spec = spec.validate()"),
+        (_TRAFFIC_DEVICE,
+         "                               hb_ticks=hb_ticks),\n"
+         "            base_seed=seed, backend=backend, active_set=active_set,",
+         '                               hb_ticks=hb_ticks, device="cpu"),\n'
+         "            base_seed=seed, backend=backend, active_set=active_set,"),
+        (_TRAFFIC_DEVICE,
+         "            flight_lease=flight_lease)\n",
+         "            flight_lease=flight_lease, device=device)\n"),
+        (_TRAFFIC_DEVICE, _TRAFFIC_PEER_PARAMS,
+         _TRAFFIC_PEER_PARAMS.replace("hb_ticks=hb_ticks),", 'hb_ticks=hb_ticks, device="cpu"),')
+         .replace("backend=backend)", "backend=backend,\n                       device=device)")),
+    ],
+})
 # ``josefine_tpu`` as a whole name on an import line: ``josefine_tpu.x``
 # and ``from josefine_tpu import x``.
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)josefine_tpu(?=[.\s])", re.M)

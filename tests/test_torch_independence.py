@@ -12,12 +12,18 @@ import pytest
 import torch
 
 from josefine_tpu_torch import bench, bench_engine, bench_node, bench_server, interop
+from josefine_tpu_torch.chaos.harness import ChaosCluster, MembershipChaosCluster
+from josefine_tpu_torch.chaos.search import ChaosSearch, Corpus
+from josefine_tpu_torch.chaos.soak import run_soak, run_soak_async
+from josefine_tpu_torch.chaos.wire_soak import WireCluster, run_wire_soak, run_wire_soak_async
 from josefine_tpu_torch.config import EngineConfig, RaftConfig
 from josefine_tpu_torch.models import chained_raft as cr, types
 from josefine_tpu_torch.ops import _build
 from josefine_tpu_torch.raft.engine import RaftEngine
 from josefine_tpu_torch.raft.server import JosefineRaft
 from josefine_tpu_torch.utils.kv import MemKV
+from josefine_tpu_torch.workload.driver import TrafficEngine
+from josefine_tpu_torch.workload.model import WorkloadSpec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,7 +67,15 @@ def test_port_imports_no_jax():
                  "josefine_tpu_torch.__main__",
                  *(f"josefine_tpu_torch.broker.{m}" for m in (
                      "state", "fsm", "records", "log", "fetch_frame", "replica",
-                     "partition_fsm", "groups", "handlers", "server"))):
+                     "partition_fsm", "groups", "handlers", "server")),
+                 "josefine_tpu_torch.utils.coverage", "josefine_tpu_torch.chaos",
+                 *(f"josefine_tpu_torch.chaos.{m}" for m in (
+                     "faults", "invariants", "nemesis", "harness", "soak", "wire",
+                     "wire_soak", "search")),
+                 "josefine_tpu_torch.workload",
+                 *(f"josefine_tpu_torch.workload.{m}" for m in (
+                     "model", "schedule", "trace", "genome", "chaos_traffic", "driver",
+                     "wire"))):
         assert name in out["imported"]
     after = os.listdir(_build.BUILD_DIR) if os.path.isdir(_build.BUILD_DIR) else []
     assert after == before, "importing the port must build nothing"
@@ -72,7 +86,10 @@ def test_port_imports_no_jax():
                                 interop.msgs_from_numpy, interop.params_from_numpy,
                                 interop.member_from_numpy, interop.peer_fresh_from_numpy,
                                 RaftEngine.__init__, bench_engine.run,
-                                JosefineRaft.__init__, bench_server.run, bench_node.run])
+                                JosefineRaft.__init__, bench_server.run, bench_node.run,
+                                ChaosCluster.__init__, MembershipChaosCluster.__init__,
+                                run_soak_async, WireCluster.__init__, run_wire_soak_async,
+                                ChaosSearch.__init__, TrafficEngine.__init__])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -92,6 +109,26 @@ def test_default_device_raises_without_a_card():
                  lambda: bench_engine.run(4, ticks=1, warmup=1),
                  lambda: JosefineRaft(RaftConfig(), MemKV(), {}, groups=4),
                  lambda: bench_server.run(4, rounds=1, warmup=1),
-                 lambda: bench_node.run(4, batches=2, traced=1)):
+                 lambda: bench_node.run(4, batches=2, traced=1),
+                lambda: ChaosCluster(7), lambda: MembershipChaosCluster(7),
+                lambda: run_soak(7, "leader-partition", horizon=2),
+                lambda: run_wire_soak(7, "wire-leader-partition"),
+                lambda: ChaosSearch(7, Corpus()),
+                lambda: TrafficEngine(WorkloadSpec(tenants=1), 7)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_chaos_and_traffic_params_live_on_the_host():
+    """The chaos harness's module-level params are host tensors, so importing
+    it allocates nothing on a device; the engines move them to their own."""
+    from josefine_tpu_torch.chaos import harness
+
+    for params in (harness.DEFAULT_PARAMS, harness.LEASE_PARAMS):
+        assert {t.device.type for t in params.leaves()} == {"cpu"}
+
+
+def test_traffic_driver_refuses_the_jax_backend():
+    assert inspect.signature(TrafficEngine.__init__).parameters["backend"].default == "torch"
+    with pytest.raises(ValueError, match="unknown engine backend 'jax'"):
+        TrafficEngine(WorkloadSpec(tenants=1), 7, backend="jax", device="cpu")

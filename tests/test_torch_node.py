@@ -35,16 +35,11 @@ from josefine_tpu_torch import Shutdown, josefine_with_config, load_config
 from josefine_tpu_torch import node as port_node
 from josefine_tpu_torch.kafka import client as kafka_client
 from josefine_tpu_torch.kafka.codec import ApiKey
-from torch_parity import INTEGRATION_EDITS, only_port_nodes, repointed  # noqa: F401
+from torch_parity import HOST, INTEGRATION_EDITS, only_port_nodes, repointed  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "josefine_tpu_torch", "examples")
-_ON_THE_HOST = [
-    ("from josefine_tpu_torch.models.types import step_params",
-     "from torch_parity import host_step_params as step_params"),
-    ("from josefine_tpu_torch.raft.engine import RaftEngine",
-     "from torch_parity import HostRaftEngine as RaftEngine"),
-]
+_ON_THE_HOST = [HOST["step_params"], HOST["RaftEngine"]]
 
 
 def _moved(*texts: str, digits: int) -> list[tuple[str, str]]:
@@ -58,9 +53,7 @@ def _moved(*texts: str, digits: int) -> list[tuple[str, str]]:
 
 _cases = [
     repointed("test_integration", edits=INTEGRATION_EDITS),
-    repointed("test_partition_groups", edits=[
-        ("from test_integration import NodeManager", "from torch_parity import NodeManager"),
-    ]),
+    repointed("test_partition_groups", edits=[HOST["NodeManager"]]),
     repointed("test_reset_safety", edits=[
         ("from test_integration import NodeManager, make_batch",
          "from torch_parity import NodeManager, make_batch"),

@@ -2,8 +2,8 @@
 run against the port's engine (``device="cpu"``), its ``"torch"`` backend
 in the place of ``"jax"``: the windowed differential against the python
 backend, term stability across long windows, commit and re-election at
-window 2, and the window's clamps. The two cases on the JAX package's
-``ChaosCluster`` wait for the port of the chaos harness (ROADMAP item 11).
+window 2, the window's clamps, and the port's ``ChaosCluster`` stepping
+windows under crashes and the fault model.
 """
 
 from torch_parity import repointed
@@ -22,9 +22,8 @@ globals().update(repointed("test_window", edits=[
      'engines, fsms = make_cluster("torch", sparse=False)'),
     ('engines, _ = make_cluster("jax", sparse=False, hb_ticks=4)',
      'engines, _ = make_cluster("torch", sparse=False, hb_ticks=4)'),
-], leave_out={
-    "test_windowed_chaos_crash_restart_safety":
-        "runs on the JAX package's ChaosCluster (chaos is ROADMAP item 11)",
-    "test_windowed_sparse_chaos_all_features":
-        "runs on the JAX package's ChaosCluster (chaos is ROADMAP item 11)",
-}))
+], everywhere=[
+    ("from josefine_tpu_torch.chaos.harness import ChaosCluster\n",
+     "from torch_parity import HostChaosCluster as ChaosCluster\n"),
+    ("hb_ticks=8))", 'hb_ticks=8, device="cpu"))'),
+]))

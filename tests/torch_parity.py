@@ -8,7 +8,7 @@ uint32 bit patterns.
 
 from __future__ import annotations
 
-import asyncio
+import gc
 import pathlib
 import re
 import types
@@ -22,9 +22,16 @@ import torch
 from josefine_tpu.models import chained_raft as jcr
 from josefine_tpu.models.types import step_params as jax_step_params
 from josefine_tpu.raft import packed_step as jps
+from josefine_tpu.utils.metrics import REGISTRY as JAX_REGISTRY
 from josefine_tpu_torch import interop
+from josefine_tpu_torch.chaos.harness import ChaosCluster, MembershipChaosCluster
+from josefine_tpu_torch.chaos.search import ChaosSearch
+from josefine_tpu_torch.chaos.soak import run_soak
+from josefine_tpu_torch.chaos.wire_soak import run_wire_soak
 from josefine_tpu_torch.models.types import step_params as port_step_params
 from josefine_tpu_torch.raft.engine import RaftEngine
+from josefine_tpu_torch.utils.metrics import REGISTRY
+from josefine_tpu_torch.workload.driver import TrafficEngine
 
 STATE_NAMES = ("term", "voted_for", "role", "leader", "head.t", "head.s", "commit.t",
                "commit.s", "elapsed", "timeout", "hb_elapsed", "alive", "seed", "votes",
@@ -153,13 +160,16 @@ def _is_fixture(v) -> bool:
             or getattr(v, "_pytestfixturefunction", None) is not None)
 
 
-def _port_namespace(name: str, edits) -> dict:
+def _port_namespace(name: str, edits, everywhere=()) -> dict:
     """``tests/<name>.py`` run as a module of its own against the port (see
     :func:`repointed`); returns its namespace."""
     path = pathlib.Path(__file__).with_name(f"{name}.py")
     src = _JAX_IMPORT.sub(r"\1josefine_tpu_torch", path.read_text())
     for old, new in edits:
         assert src.count(old) == 1, f"{name}: {old!r} matches {src.count(old)} times"
+        src = src.replace(old, new)
+    for old, new in everywhere:
+        assert old in src, f"{name}: {old!r} matches nowhere"
         src = src.replace(old, new)
     sibling = _SIBLING_IMPORT.search(src)
     assert sibling is None, f"{name}: {sibling.group(0).strip()!r} is left un-replaced"
@@ -171,19 +181,21 @@ def _port_namespace(name: str, edits) -> dict:
     return ns
 
 
-def repointed(name: str, edits=(), leave_out: dict[str, str] | None = None) -> dict:
+def repointed(name: str, edits=(), leave_out: dict[str, str] | None = None,
+              everywhere=()) -> dict:
     """The cases of ``tests/<name>.py``, run against the port.
 
     The JAX test module's source has every import of the JAX package
     re-pointed at the port and each ``(old, new)`` of ``edits`` made (each
     must match exactly once, so a drift of the original fails here), and
-    runs as a module of its own. No import of a sibling test module may be
-    left: such a module imports the JAX package. Returns its ``test_*``
-    functions, ``Test*`` classes and fixtures, less the cases named in
-    ``leave_out`` (name -> the reason it is left out), for the calling test
-    file to take into its namespace."""
+    runs as a module of its own. Each ``(old, new)`` of ``everywhere`` is
+    made at every place it matches, and must match at least once. No import
+    of a sibling test module may be left: such a module imports the JAX
+    package. Returns its ``test_*`` functions, ``Test*`` classes and
+    fixtures, less the cases named in ``leave_out`` (name -> the reason it
+    is left out), for the calling test file to take into its namespace."""
     leave_out = leave_out or {}
-    ns = _port_namespace(name, edits)
+    ns = _port_namespace(name, edits, everywhere)
     assert all(leave_out.values()), f"{name}: a case is left out without a reason"
     assert set(leave_out) <= set(ns), f"{name}: no {sorted(set(leave_out) - set(ns))}"
     return {k: v for k, v in ns.items()
@@ -196,78 +208,50 @@ INTEGRATION_EDITS = [
     ("engine=EngineConfig(partitions=partitions,",
      'engine=EngineConfig(partitions=partitions, device="cpu",'),
 ]
-_integration: dict = {}
+NODE_CHAOS_EDITS = [("from test_integration import NodeManager, make_batch",
+                     "from torch_parity import NodeManager, make_batch")]
+# Import lines a suite's edits swap for the port's entry points with their
+# engines on the host (the substitutes are defined below).
+HOST = {
+    "run_soak": ("from josefine_tpu_torch.chaos.soak import run_soak\n",
+                 "from torch_parity import host_run_soak as run_soak\n"),
+    "run_wire_soak": ("from josefine_tpu_torch.chaos.wire_soak import run_wire_soak\n",
+                      "from torch_parity import host_run_wire_soak as run_wire_soak\n"),
+    "TrafficEngine": ("from josefine_tpu_torch.workload.driver import TrafficEngine\n",
+                      "from torch_parity import HostTrafficEngine as TrafficEngine\n"),
+    "step_params": ("from josefine_tpu_torch.models.types import step_params\n",
+                    "from torch_parity import host_step_params as step_params\n"),
+    "RaftEngine": ("from josefine_tpu_torch.raft.engine import RaftEngine\n",
+                   "from torch_parity import HostRaftEngine as RaftEngine\n"),
+    "NodeManager": ("from test_integration import NodeManager\n",
+                    "from torch_parity import NodeManager\n"),
+}
+# Helpers that suites import from a sibling JAX suite, served from that suite
+# re-pointed at the port: module -> (its edits, the names served).
+_SIBLINGS = {
+    "test_integration": (INTEGRATION_EDITS, ("NodeManager", "make_batch")),
+    "test_node_chaos": (NODE_CHAOS_EDITS, ("_metadata", "_produce_one")),
+    "test_partition_groups": ([HOST["NodeManager"]], ("_create", "_wait_partitions")),
+    "test_device_route": ([
+        HOST["step_params"], HOST["RaftEngine"],
+        # The port's state is a dataclass with ``leaves()``, not a pytree.
+        ("zip(jax.tree.leaves(ea.state), jax.tree.leaves(er.state))",
+         "zip(ea.state.leaves(), er.state.leaves())"),
+    ], ("ListFsm", "_wire_key", "_would_route", "_assert_engines_equal")),
+}
+_sibling_ns: dict[str, dict] = {}
 
 
 def __getattr__(name: str):
-    """``NodeManager`` and ``make_batch`` of the port's ``test_integration``,
-    for the suites that import them from that module (``from torch_parity
-    import NodeManager`` in their edits)."""
-    if name in ("NodeManager", "make_batch"):
-        if not _integration:
-            _integration.update(_port_namespace("test_integration", INTEGRATION_EDITS))
-        return _integration[name]
+    """A helper of a sibling suite (``_SIBLINGS``), for the suites that
+    import it from that module (``from torch_parity import NodeManager`` in
+    their edits)."""
+    for module, (edits, names) in _SIBLINGS.items():
+        if name in names:
+            if module not in _sibling_ns:
+                _sibling_ns[module] = _port_namespace(module, edits)
+            return _sibling_ns[module][name]
     raise AttributeError(name)
-
-
-# The port-side copies of ``tests/test_node_chaos.py``'s two Kafka helpers
-# (that module imports the chaos package, which is not ported yet): topic
-# metadata from any live broker, and one produce routed to the leader with
-# bounded retries.
-CHAOS_TOPIC = "crashy"
-
-
-async def _metadata(mgr, exclude=frozenset()):
-    """Topic metadata from any live broker; None if none answer."""
-    from josefine_tpu_torch.kafka import client as kafka_client
-    from josefine_tpu_torch.kafka.codec import ApiKey
-
-    for i, n in enumerate(mgr.nodes):
-        if i in exclude or n is None:
-            continue
-        try:
-            cl = await kafka_client.connect("127.0.0.1", mgr.broker_ports[i])
-            try:
-                return await asyncio.wait_for(
-                    cl.send(ApiKey.METADATA, 1, {"topics": [{"name": CHAOS_TOPIC}]}), 5)
-            finally:
-                await cl.close()
-        except Exception:  # noqa: BLE001 - try the next broker
-            continue
-    return None
-
-
-async def _produce_one(mgr, part: int, payload: bytes, down: set[int]) -> bool:
-    """One client-style produce with leader routing and bounded retries;
-    True only if the broker acknowledged it (error_code 0)."""
-    from josefine_tpu_torch.kafka import client as kafka_client
-    from josefine_tpu_torch.kafka.codec import ApiKey
-
-    make_batch = __getattr__("make_batch")
-    for _ in range(40):
-        md = await _metadata(mgr, exclude=down)
-        parts = (md or {}).get("topics", [{}])[0].get("partitions") or []
-        p = next((p for p in parts if p["partition_index"] == part), None)
-        if p is None or p["leader_id"] < 1 or (p["leader_id"] - 1) in down:
-            await asyncio.sleep(0.25)
-            continue
-        try:
-            cl = await kafka_client.connect(
-                "127.0.0.1", mgr.broker_ports[p["leader_id"] - 1])
-            try:
-                pr = await asyncio.wait_for(cl.send(ApiKey.PRODUCE, 3, {
-                    "transactional_id": None, "acks": -1, "timeout_ms": 5000,
-                    "topics": [{"name": CHAOS_TOPIC, "partitions": [
-                        {"index": part, "records": make_batch(payload, 1)}]}],
-                }), 8)
-                if pr["responses"][0]["partitions"][0]["error_code"] == 0:
-                    return True
-            finally:
-                await cl.close()
-        except Exception:  # noqa: BLE001 - retried, as a client does
-            pass
-        await asyncio.sleep(0.25)
-    return False
 
 
 def host_step_params(*args, **kw):
@@ -306,3 +290,48 @@ def only_port_nodes(monkeypatch):
     monkeypatch.setattr(jax_node.Node, "__init__", refuse)
     monkeypatch.setattr(port_node.Node, "__init__", record)
     yield built
+
+
+# The chaos and workload planes on the host, for the re-pointed suites: each
+# entry point as the port has it, its engines on the CPU unless told
+# otherwise (``HOST`` names the import lines that take them).
+
+
+def host_run_soak(*args, device="cpu", **kw):
+    return run_soak(*args, device=device, **kw)
+
+
+def host_run_wire_soak(*args, device="cpu", **kw):
+    return run_wire_soak(*args, device=device, **kw)
+
+
+class HostChaosCluster(ChaosCluster):
+    def __init__(self, *args, device="cpu", **kw):
+        super().__init__(*args, device=device, **kw)
+
+
+class HostMembershipChaosCluster(MembershipChaosCluster):
+    def __init__(self, *args, device="cpu", **kw):
+        super().__init__(*args, device=device, **kw)
+
+
+class HostChaosSearch(ChaosSearch):
+    def __init__(self, *args, device="cpu", **kw):
+        super().__init__(*args, device=device, **kw)
+
+
+class HostTrafficEngine(TrafficEngine):
+    def __init__(self, *args, device="cpu", **kw):
+        super().__init__(*args, device=device, **kw)
+
+
+
+
+def fresh_registries() -> None:
+    """Zero both packages' process-global metrics registries and collect the
+    engines of earlier runs, whose scrape hooks would otherwise still publish
+    into the next dump: a twin's two runs then read registries with the same
+    (empty) history, whatever ran before them in the process."""
+    gc.collect()
+    JAX_REGISTRY.reset()
+    REGISTRY.reset()
