@@ -50,7 +50,7 @@ Phases (any failure raises, and the script exits non-zero without a result):
    (``torch.profiler``).
 6. the engine's scale path on the card (sparse packed IO and the active-set
    scheduler; PyTorch ops only, no hand kernel). 6a: a 3-engine cluster on
-   the card and the same cluster on the CPU at P = 8192, 70 single ticks
+   the card and the same cluster on the CPU at P = 8192, 50 single ticks
    under a proposal drizzle, once with sparse IO and once with sparse IO
    plus the active set, every engine's compaction capacity set to 64 at the
    start: on every tick the encoded bytes of every outbound message, every
@@ -79,7 +79,8 @@ Phases (any failure raises, and the script exits non-zero without a result):
    with leases off must equal that one on the wire. Every route scatter
    must read the sender step's own device output, and no card engine's
    ``tick_begin`` may wait for the device. 7b: ``bench_engine.run`` at
-   P = 100,000 (sparse IO, 1,000 proposals per round) in the order A B C:
+   P = 100,000 (sparse IO, 1,000 proposals per round, 20 warmup and 20
+   timed rounds) in the order A B C:
    A host delivery, B ``device_route``, C ``device_route`` and
    ``payload_ring``; each prints the numbers of 5b plus the routed/host
    split, the ring's statistics and the delivery barrier's host ms.
@@ -147,6 +148,28 @@ Phases (any failure raises, and the script exits non-zero without a result):
    timed, one leader per claimed row; it prints the boot time, ms per tick,
    committed batches/s, commit latency in ticks, host ms per engine phase,
    the card's idle share over 5 traced ticks and the trace sha256.
+11. the sharded programs on the card (``parallel/sharded.py``,
+   ``RaftEngine(mesh=)``; PyTorch ops only, no hand kernel). The mesh takes
+   8 distinct cards when the machine has them, else 8 shards of ``cuda:0``,
+   and every line names it. 11a: the sharded cluster step on a (8, 1) mesh
+   (N = 5) and a (2, 4) mesh (N = 4, the nodes of each group over 4 shards,
+   delivery by the all_to_all over 'n') equals the unsharded
+   ``cluster_step`` on the card every tick for 40 ticks at P = 8192; three
+   engines on an 8-shard card mesh equal three on an 8-shard host mesh
+   every tick for 60 ticks at P = 8192 (active set, a ``RouteFabric`` with
+   the payload ring, engine 2 cut for 10 ticks), every card ``tick_begin``
+   under sync debug "error", the per-shard wake split equal to the
+   schedule; then the same twin with the card side's shards alternating
+   ``cuda:0`` and ``cpu``, where a read of another shard's tensor mixes
+   devices and raises. 11b: ``josefine_tpu_torch.bench_podsim`` at
+   1,048,576 groups over 8 shards: the simulation (N = 5, 30 warmup and
+   10 timed ticks; every group one leader and committed) and the engine
+   row (cluster 1, active set, 1,000 tenants, Zipf 1.2, 2,048 offered per
+   tick, ``hb_ticks=256``, window 8, 15 warmup and 20 timed rounds; every
+   group elects, commits advance, the wake split sums to the schedule, no
+   fallback round but at the heartbeat horizon). It prints init, settle
+   and ms per tick, the wake fraction per shard, the committed advances
+   and the state bytes per shard.
 
 Each phase prints the seconds since the start when it ends. The line before the last is a JSON object describing each kernel (launches,
 error, times, bound); the last line is the JSON device record.
@@ -306,12 +329,22 @@ def _fabric_view(fab) -> dict:
             "ready": {s: arr(p) for s, p in sorted(fab._ready.items())}}
 
 
+def _on_card(e) -> bool:
+    """A card engine: its state is on the card, every shard of it on a mesh
+    (a mesh with host shards copies between the host and the card, and such
+    a copy waits by nature)."""
+    if e._mesh is not None:
+        return all(d.type == "cuda" for d in e._shard_devs)
+    return e._device.type == "cuda"
+
+
 class _StrictCardTicks:
-    """While active, every card engine's ``tick_begin`` runs under CUDA's
-    sync debug mode set to error, so a host wait inside it raises, but for
-    the active set's counted refetch (``_refetch_wake_inputs``). Patched on
-    the class, so it reaches engines the harnesses build and rebuild
-    themselves (restarts, nodes, replicas). Counts the card ticks begun."""
+    """While active, every card engine's ``tick_begin`` (:func:`_on_card`)
+    runs under CUDA's sync debug mode set to error, so a host wait inside it
+    raises, but for the active set's counted refetch
+    (``_refetch_wake_inputs``). Patched on the class, so it reaches engines
+    the harnesses build and rebuild themselves (restarts, nodes, replicas).
+    Counts the card ticks begun."""
 
     def __enter__(self):
         import torch
@@ -324,7 +357,7 @@ class _StrictCardTicks:
         outer = self
 
         def strict_begin(e, *args, **kw):
-            if e._device.type != "cuda":
+            if not _on_card(e):
                 return begin(e, *args, **kw)
             outer.begun += 1
             torch.cuda.set_sync_debug_mode("error")
@@ -334,7 +367,7 @@ class _StrictCardTicks:
                 torch.cuda.set_sync_debug_mode("default")
 
         def counted_refetch(e, *args, **kw):
-            if e._device.type != "cuda":
+            if not _on_card(e):
                 return refetch(e, *args, **kw)
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("default")
@@ -605,7 +638,7 @@ def _retrieve(fut):
     fut.cancelled() or fut.exception()
 
 
-def engine_parity_scale(dev, P: int = 8192, ticks: int = 70) -> None:
+def engine_parity_scale(dev, P: int = 8192, ticks: int = 50) -> None:
     """Phase 6a: the twin clusters (:func:`_twin_run`) at the sparse-IO
     scale, single ticks, once with sparse IO and once with sparse IO plus
     the active set. Every engine's compaction capacity starts at 64, so the
@@ -712,9 +745,10 @@ def route_parity(dev, P_dense: int = 4096, P_scale: int = 8192, ticks: int = 80)
 
 def route_bench(card: str, P: int = 100_000) -> list[tuple[str, dict]]:
     """Phase 7b: ``bench_engine.run`` at P = 100,000 (sparse IO), 1,000
-    proposals per round (``active_frac=0.01``), 40 warmup and 20 timed
-    rounds, in the order A B C (one pass, not a mirrored A B C C B A, to
-    keep the script within half its time limit): A the host path, B
+    proposals per round (``active_frac=0.01``), 20 warmup and 20 timed
+    rounds, in the order A B C (one pass, not a mirrored A B C C B A, and
+    half the other rows' warmup, to keep the script within its time limit):
+    A the host path, B
     ``device_route``,
     C ``device_route`` with ``payload_ring``. Each must leave one leader per
     group and commit blocks; B and C must route. Returns the rows by name,
@@ -723,7 +757,7 @@ def route_bench(card: str, P: int = 100_000) -> list[tuple[str, dict]]:
              "C route+ring": dict(device_route=True, payload_ring=True)}
     rows = []
     for name in ("A host", "B route", "C route+ring"):
-        row = engine_bench(card, P=P, active_frac=0.01, **modes[name])
+        row = engine_bench(card, P=P, warmup=20, active_frac=0.01, **modes[name])
         rows.append((name, row))
         stats = row.get("device_route_stats")
         if stats is not None and not stats["routed_msgs"]:
@@ -971,14 +1005,14 @@ def node_bench(card: str, **kw) -> dict:
     return row
 
 
-def engine_bench(card: str, P: int = 4096, **kw) -> dict:
+def engine_bench(card: str, P: int = 4096, warmup: int = 40, **kw) -> dict:
     """Phases 5b, 6b and 6c: the engine path at full size on the card
     (``bench_engine.run``; ``kw`` picks the active set), with its gates."""
     from josefine_tpu_torch import bench_engine
     from josefine_tpu_torch.ops import fused_step
 
     launches0 = fused_step.launches
-    row = bench_engine.run(P=P, warmup=40, ticks=20, **kw)
+    row = bench_engine.run(P=P, warmup=warmup, ticks=20, **kw)
     print(json.dumps(row), flush=True)
     if row["leaders_per_group"] != {"min": 1, "max": 1}:
         raise AssertionError(f"engine path: leaders per group {row['leaders_per_group']}")
@@ -1272,6 +1306,177 @@ def traffic_bench(card: str, tenants: int = 1000, partitions: int = 10_000, tick
     return row
 
 
+def sharded_step_parity(dev, P: int = 8192, ticks: int = 40,
+                        shapes=((8, 1, 5), (2, 4, 4))) -> None:
+    """Phase 11a, the simulation: the port's sharded cluster step
+    (``parallel/sharded.py make_sharded_cluster_step``) on a (p, n) mesh
+    equals the unsharded ``cluster_step`` on ``dev`` every tick, every state,
+    inbox and metrics leaf, for each (p, n, N) of ``shapes``; (2, 4) splits
+    the nodes of every group over 4 shards, so its delivery is the
+    all_to_all over 'n' (N = 4 there: the node shards must divide N)."""
+    import numpy as np
+    import torch
+
+    from josefine_tpu_torch.bench_podsim import mesh_devices
+    from josefine_tpu_torch.models import chained_raft as cr
+    from josefine_tpu_torch.models.types import LEADER, step_params
+    from josefine_tpu_torch.parallel.sharded import (
+        describe_devices,
+        make_mesh,
+        make_sharded_cluster_step,
+        place,
+    )
+
+    params = step_params(timeout_min=3, timeout_max=8, hb_ticks=1, auto_proposals=2,
+                         device=dev)
+    for n_p, n_n, N in shapes:
+        devs = mesh_devices(n_p * n_n, dev)
+        mesh = make_mesh(n_p, n_n, devices=devs)
+        step = make_sharded_cluster_step(mesh, N)
+        state, member = cr.init_state(P, N, base_seed=7, params=params, device=dev)
+        inbox = cr.empty_inbox(P, N, device=dev)
+        props = torch.zeros((P, N), dtype=torch.int32, device=dev)
+        gs, gi = place(state, mesh), place(inbox, mesh)
+        gm, gp = place(member, mesh, ("p", None)), place(props, mesh)
+        t0 = time.perf_counter()
+        for t in range(ticks):
+            state, inbox, met = cr.cluster_step(params, member, state, inbox, props)
+            gs, gi, gmet = step(params, gm, gs, gi, gp)
+            for what, a, b in (("state", state, gs), ("inbox", inbox, gi),
+                               ("metrics", met, gmet)):
+                for j, (x, y) in enumerate(zip(a.leaves(), b.leaves())):
+                    if not np.array_equal(x.cpu().numpy(), np.asarray(y)):
+                        raise AssertionError(f"sharded step ({n_p}, {n_n}): tick {t} "
+                                             f"{what} leaf {j} differs")
+        seconds = time.perf_counter() - t0
+        leaders = int(((state.role == LEADER).sum(dim=1) == 1).sum())
+        if leaders != P or int(state.commit.s.max()) <= 0:
+            raise AssertionError(f"sharded step ({n_p}, {n_n}): {leaders} of {P} groups "
+                                 "with one leader, or nothing committed")
+        print(f"sharded step parity ok: mesh ({n_p}, {n_n}) on {describe_devices(devs)}, "
+              f"P={P} x N={N}: the sharded cluster step == the unsharded one on "
+              f"{dev} for {ticks} ticks (state, inbox, metrics); {leaders} groups with "
+              f"one leader; {seconds:.1f} s", flush=True)
+
+
+def engine_mesh_parity(dev, P: int = 8192, ticks: int = 60, S: int = 8) -> None:
+    """Phase 11a, the engine: three engines on an ``S``-shard mesh of the
+    card (``bench_podsim.mesh_devices``: distinct cards when there are
+    ``S``, else ``S`` shards of ``cuda:0``) and three on an ``S``-shard mesh of the
+    host, active set on, each side on a ``RouteFabric`` with the payload
+    ring (:func:`_run_sides`, relation ``"exact"``: outbound bytes, mirrors,
+    state, chains, journal, routed counts, the fabric, the lease lane),
+    every card ``tick_begin`` under sync debug "error". Then the isolation
+    check: the same twin with the card side's shards alternating ``cuda:0``
+    and ``cpu``, where any read of another shard's tensor outside the two
+    named exchanges mixes devices and raises."""
+    import numpy as np
+    import torch
+
+    from josefine_tpu_torch.bench_podsim import mesh_devices
+    from josefine_tpu_torch.parallel.sharded import Mesh, describe_devices
+
+    cpu = torch.device("cpu")
+    host_mesh = Mesh(np.array([cpu] * S), ("p",))
+    card_devs = mesh_devices(S, dev)
+    meshes = (("card", card_devs),
+              ("isolation", [dev if s % 2 == 0 else cpu for s in range(S)]))
+    for label, devs in meshes:
+        wake = [0, 0]
+
+        def split(t, engines):
+            for e in engines:
+                if e._last_wake_shard is not None and not e._sched_pending:
+                    wake[0] += int(e._last_wake_shard.sum())
+                    wake[1] += e._last_wake_rows
+
+        t0 = time.perf_counter()
+        side_kw = dict(active_set=True)
+        sides, applied, sent, _ = _run_sides(
+            P, ticks, 17,
+            [(dev, dict(side_kw, mesh=Mesh(np.array(devs), ("p",))),
+              dict(payload_ring=True), None),
+             ("cpu", dict(side_kw, mesh=host_mesh), dict(payload_ring=True), ("exact", 0))],
+            cut=lambda t: (2,) if 25 <= t < 35 else (), on_tick=split, bursts=2)
+        seconds = time.perf_counter() - t0
+        card, fab = sides[0]
+        if wake[0] != wake[1]:
+            raise AssertionError(f"engine mesh parity ({label}): the per-shard wake split "
+                                 f"sums to {wake[0]}, the schedules to {wake[1]}")
+        compacted = sum(e.active_sched_ticks for e in card)
+        leaders = sum(int((e._h_role == 2).sum()) for e in card)
+        if not (compacted and fab.routed_total and leaders == P):
+            raise AssertionError(f"engine mesh parity ({label}): compacted {compacted}, "
+                                 f"routed {fab.routed_total}, leaders {leaders}")
+        print(f"engine mesh parity ok ({label}): P={P}, 3 engines on {S} shards of "
+              f"{describe_devices(devs)} == 3 on {S} shards of the host for {ticks} "
+              f"ticks (active set, route fabric + payload ring, engine 2 cut for 10): "
+              f"{sent} outbound messages byte-equal, every mirror, state leaf, chain, "
+              f"journal, routed count and fabric equal; {compacted} compacted "
+              f"engine-ticks, {fab.routed_total} rows routed, {len(applied[0])} blocks "
+              f"applied on group 0, {leaders} leaders, per-shard wake split == "
+              f"schedule ({wake[0]} rows); {seconds:.1f} s", flush=True)
+
+
+def podsim_bench(card: str, per_device: int = 131_072, devices: int = 8,
+                 engine_per_device: int = 131_072, device="cuda", tenants: int = 1000,
+                 offered: int = 2048) -> dict:
+    """Phase 11b: ``josefine_tpu_torch.bench_podsim`` at BASELINE config 5's
+    size on the card. The simulation row: ``per_device * devices`` groups
+    of N = 5 over ``devices`` 'p' shards, 30 warmup and 10 timed ticks (the
+    40 ticks in which the JAX package's 1M-group pod-sim test has every
+    group elected: randomized timeouts still split a few votes in a million
+    groups after 25); every group must have one leader and commit. The engine row (the JAX
+    ``MULTICHIP_podsim.json`` engine row's spec): ``engine_per_device *
+    devices`` groups over ``devices`` shards, cluster 1, active set, 1,000
+    tenants, Zipf 1.2, 2,048 offered per tick, ``hb_ticks=256``, window 8,
+    15 warmup and 20 timed rounds (160 ticks); gates: every group elects,
+    commits advance, the per-shard wake split sums to the scheduled rows
+    every tick, and no timed round falls back to the dense dispatch but the
+    one whose window holds a multiple of ``hb_ticks``: the cold start
+    elects every group within a few ticks, so their heartbeats fall due
+    together there (the JAX engine's schedule is the same)."""
+    import asyncio
+
+    from josefine_tpu_torch import bench_podsim
+
+    row = bench_podsim.bench_row(per_device, devices, ticks=10, warmup=30, device=device)
+    print(json.dumps(row), flush=True)
+    if row["groups_with_one_leader"] != row["P"] or row["groups_committed"] != row["P"]:
+        raise AssertionError(f"podsim simulation: {row['groups_with_one_leader']} groups "
+                             f"with one leader, {row['groups_committed']} committed, of "
+                             f"{row['P']}")
+    print(f"podsim simulation: P={row['P']} x N=5 over {devices} shards of {row['mesh']}: "
+          f"init {row['init_s']:.2f} s, warmup {row['compile_plus_warmup_s']:.2f} s, "
+          f"{row['ms_per_tick']:.3f} ms/tick, {row['group_ticks_per_sec']:.6g} group-ticks/s, "
+          f"{row['accepted_msgs_per_sec']:.6g} accepted msgs/s; state "
+          f"{row['state_bytes_per_shard']} + inbox {row['inbox_bytes_per_shard']} bytes per "
+          f"shard; every group one leader and committed [{card}]", flush=True)
+    erow = asyncio.run(bench_podsim.bench_engine_row(engine_per_device, devices, ticks=20,
+                                                     warmup=15, tenants=tenants,
+                                                     offered=offered, device=device))
+    print(json.dumps(erow), flush=True)
+    hb, w = erow["hb_ticks"], erow["window"]
+    off_horizon = [t for t in erow["fallback_at_ticks"] if (t + w - 1) // hb * hb < max(t, 1)]
+    if (erow["leaders_after_settle"] != erow["P"] or erow["committed_group_advances"] <= 0
+            or off_horizon or not erow["wake_split_sums_to_scheduled"]
+            or not erow["wake_frac_gauge_exposed"]):
+        raise AssertionError(f"podsim engine: a gate failed: {json.dumps(erow)}")
+    print(f"podsim engine: P={erow['P']} over {devices} shards of {erow['mesh']}, cluster "
+          f"1, active set, {erow['workload']['tenants']} tenants, skew "
+          f"{erow['workload']['skew']}, {erow['proposals_per_tick']} offered per tick, "
+          f"hb_ticks {erow['hb_ticks']}, window {erow['window']}: init "
+          f"{erow['init_s']:.2f} s, settle {erow['settle_ticks']} ticks in "
+          f"{erow['settle_s']:.2f} s, {erow['ticks']} timed ticks at "
+          f"{erow['ms_per_tick']:.3f} ms/tick, {erow['committed_group_advances']} committed "
+          f"advances, wake fraction {erow['avg_wake_frac']:.6f} (per shard "
+          f"{[round(f, 6) for f in erow['shard_wake_frac']]}), buckets "
+          f"{erow['bucket_levels']}, fallback rounds at ticks {erow['fallback_at_ticks']} "
+          f"(heartbeat horizons only); state {erow['state_bytes_per_shard']} "
+          f"bytes per shard [{card}]", flush=True)
+    return {"simulation": row, "engine": erow}
+
+
 def main() -> int:
     import torch
 
@@ -1528,6 +1733,12 @@ def main() -> int:
     traffic_parity(dev)
     traffic_bench(card)
     phase_done(10)
+
+    # ---- 11. the sharded programs: the mesh simulation and the mesh engine ----
+    sharded_step_parity(dev)
+    engine_mesh_parity(dev)
+    podsim_bench(card)
+    phase_done(11)
 
     print(json.dumps({"kernels": [{
         "name": "fused_window",

@@ -382,8 +382,8 @@ class EngineConfig:
     partitions: int = 1
     max_nodes: int = 8
     # Multi-device: shard the partition axis over this many local devices
-    # (0 = single device). partitions must be divisible by it. Not ported
-    # yet: any value above 0 raises.
+    # (0 = single device): that many distinct cards on "cuda", that many
+    # shards of the host on "cpu". partitions must be divisible by it.
     mesh_shards: int = 0
 
     def validate(self) -> None:
@@ -401,10 +401,6 @@ class EngineConfig:
             raise ValueError(
                 f"engine.partitions ({self.partitions}) must be divisible "
                 f"by engine.mesh_shards ({self.mesh_shards})")
-        if self.mesh_shards:
-            raise NotImplementedError(
-                "engine.mesh_shards > 0 (sharding the engine over a device mesh) is "
-                "not ported to the PyTorch engine yet (ROADMAP Queue 1, item 10)")
 
 
 @dataclass

@@ -26,8 +26,10 @@ def _tensor(a, dtype, device) -> torch.Tensor:
         resolve_device(device))
 
 
-def _numpy(t: torch.Tensor, dtype) -> np.ndarray:
-    a = t.detach().cpu().numpy()
+def _numpy(t, dtype) -> np.ndarray:
+    """A leaf on the host; a mesh engine's sharded leaf assembles its global
+    array there."""
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
     if a.dtype != dtype:
         raise TypeError(f"leaf has dtype {a.dtype}, expected {np.dtype(dtype)}")
     return a

@@ -52,9 +52,25 @@ class Node:
         # [1, P) are claimable by topic partitions (one consensus group per
         # partition — the P axis of the device state tensor).
         self.fsm = JosefineFsm(self.store, group_pool=config.engine.partitions)
-        # No device mesh: config.validate() above raises for
-        # engine.mesh_shards > 0, which the PyTorch engine does not take yet.
         mesh = None
+        if config.engine.mesh_shards:
+            # Shard the consensus-group axis over local devices (pure data
+            # parallelism — groups are independent; see RaftEngine mesh):
+            # distinct cards, or shards of the host where the engine runs on
+            # the CPU.
+            import torch
+
+            from josefine_tpu_torch.parallel.sharded import make_mesh
+
+            k = config.engine.mesh_shards
+            if config.engine.device == "cpu":
+                devs = [torch.device("cpu")] * k
+            else:
+                devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if len(devs) < k:
+                raise ValueError(
+                    f"engine.mesh_shards={k} but only {len(devs)} devices")
+            mesh = make_mesh(k, devices=devs)
         self.raft = JosefineRaft(
             config.raft,
             self.kv,

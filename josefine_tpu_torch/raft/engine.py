@@ -19,11 +19,13 @@ durability. This is the port of the JAX package's ``raft/engine.py`` with
 dense and sparse packed IO (sparse by default above 4096 groups), the
 active-set scheduler, device-resident delivery between co-located engines
 (a :class:`~josefine_tpu_torch.raft.route.RouteFabric` registers itself as
-``_fabric``) and the tick-denominated leader leases (``leases=True``,
-raft/lease.py). Backends: ``"torch"`` (the batched torch step, on
-``device``) and ``"python"`` (the scalar oracle). A device mesh is not
-ported yet and raises ``NotImplementedError`` naming the ROADMAP item that
-brings it; nothing silently runs another path.
+``_fabric``), the tick-denominated leader leases (``leases=True``,
+raft/lease.py) and sharding over a device mesh (``mesh=``, a
+:class:`~josefine_tpu_torch.parallel.sharded.Mesh`: every state leaf, the
+member mask and the planes co-shard their group axis over 'p', one block
+per shard on its device; see parallel/sharded.py). Backends: ``"torch"``
+(the batched torch step, on ``device``) and ``"python"`` (the scalar
+oracle; it takes no mesh).
 
 Invariant: an AppendEntries only reaches the device if its payload span was
 validated against its (x, y] claim (rpc.span_is_valid), so "device accepted"
@@ -75,6 +77,7 @@ from josefine_tpu_torch.models.types import (
     step_params,
 )
 from josefine_tpu_torch.ops import ids
+from josefine_tpu_torch.parallel import sharded as sh
 from josefine_tpu_torch.raft import rpc
 from josefine_tpu_torch.raft.chain import GENESIS, Chain, id_term, id_seq
 from josefine_tpu_torch.raft.fsm import Driver, Fsm, ReplicaDiverged, supports_snapshot
@@ -210,9 +213,17 @@ _CONSENSUS_KINDS = np.asarray(sorted(_CONSENSUS_KIND_SET), np.int32)
 _DENSE_MAX_GROUPS = 4096
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP Queue 1, {item})")
+def _numel(flat) -> int:
+    """Elements of a step's flat output: one tensor, or one per shard."""
+    return sum(f.numel() for f in flat) if isinstance(flat, list) else flat.numel()
+
+
+def _read_joined(t, axis: int) -> np.ndarray:
+    """A device output read to the host (a wait): one tensor, or a mesh
+    engine's per-shard blocks joined along ``axis`` in shard order."""
+    if isinstance(t, list):
+        return np.concatenate([b.cpu().numpy() for b in t], axis=axis)
+    return t.cpu().numpy()
 
 
 class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
@@ -246,9 +257,32 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
     ):
         if backend not in ("torch", "python"):
             raise ValueError(f"unknown engine backend {backend!r}")
-        if mesh is not None:
-            raise _not_ported("sharding the engine over a device mesh", "item 10")
         self._device = resolve_device(device)
+        # Multi-device: shard the P (group) axis over a mesh. Groups are
+        # independent, so each 'p' shard steps its own rows with no traffic
+        # between shards but the psum lane of the active set's wake total.
+        # The node axis stays local (the other members of each group are
+        # other engines, reached over the wire or the fabric).
+        self._mesh = mesh
+        self._shards = 1
+        self._shard_rows = groups
+        if mesh is not None:
+            if backend != "torch":
+                raise ValueError("mesh sharding requires the torch backend")
+            devices = int(np.prod(list(mesh.shape.values())))
+            if groups % devices:
+                raise ValueError(
+                    f"groups={groups} not divisible by mesh devices {devices}")
+            if active_set and "p" not in mesh.shape:
+                raise ValueError(
+                    "active_set on a sharded engine needs a 'p' mesh axis "
+                    "(the shard-local compact step runs over 'p')")
+            # The partition axis is 'p' alone (any other mesh axis only
+            # replicates in the JAX package), so the plan and the telemetry
+            # count 'p' shards, never the devices.
+            self._shards = sh.mesh_shards(mesh)
+            self._shard_rows = groups // self._shards
+            self._shard_devs = [resolve_device(d) for d in sh.shard_devices(mesh)]
         self.kv = kv
         if self_id not in node_ids:
             raise ValueError(f"self id {self_id} not in node_ids {node_ids}")
@@ -380,10 +414,12 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # slot-to-id map derived from the table before it is used.
         self.node_ids = [self.members.id_of(s) for s in range(self.N)]
         mask = self._member_mask()
-        full, member = cr.init_state(groups, self.N, member=mask,
-                                     base_seed=base_seed, params=self.params,
-                                     device=self._device)
-        self.member = member  # (P, N)
+        full, member = cr.init_state(
+            groups, self.N,
+            member=mask if mesh is None else torch.from_numpy(self._mask_np),
+            base_seed=base_seed, params=self.params, device=self._device)
+        # (P, N); on a mesh engine the mask's per-shard blocks.
+        self.member = member if mesh is None else mask
         st = _node_view(full, self.me)
         # Durable recovery: chain head/commit + persisted term/voted_for.
         heads_t, heads_s, commits_t, commits_s, terms, voted = [], [], [], [], [], []
@@ -400,6 +436,10 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             term=up(terms),
             voted_for=up(voted),
         )
+        if mesh is not None:
+            # Shard s's rows of every leaf live on its device; the per-tick
+            # path reads and writes blocks only.
+            self.state = sh.place_engine_state(self.state, mesh)
         # Host mirrors (numpy) for fast per-tick diffing. head/commit mirror
         # the packed chain ids so tick_finish can select active groups with
         # one vectorized compare instead of an O(P) Python scan.
@@ -415,6 +455,11 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # proposal-count row (zeroed in place each tick, uploaded once).
         self._in10 = np.zeros((10, groups, self.N), np.int32)
         self._me_dev = host_to(np.asarray([self.me], np.int64), self._device)
+        if mesh is not None:
+            # The step's params and slot id, one copy per shard's device.
+            on = sh._params_on(self.params, self._shard_devs)
+            self._sh_params = [on[str(d)] for d in self._shard_devs]
+            self._sh_me = self._per_shard(np.asarray([self.me], np.int64))
         # Hot-path counters with the label key pre-resolved.
         self._c_in = _m_in.bind(node=self.self_id)
         # Per-(group, src) tick of the last delivered consensus message —
@@ -464,8 +509,7 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # as one transfer; alive never moves on the engine path.
         self._h_elapsed = np.zeros(groups, np.int32)
         self._h_hb = np.zeros(groups, np.int32)
-        timers = torch.stack([self.state.timeout,
-                              self.state.alive.to(torch.int32)]).cpu().numpy()
+        timers = self._read_rows(self.state.timeout, self.state.alive)
         self._h_timeout = timers[0].astype(np.int32)
         self._h_alive = timers[1].astype(bool)
         self._wake_role, self._wake_leader = self._h_role, self._h_leader
@@ -478,6 +522,9 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         self.active_fallback_ticks = 0
         self.active_refetches = 0
         self._last_wake_rows = 0
+        # Per-shard wake counts of the last schedule (mesh engines): backs
+        # the raft_active_wake_fraction{shard=} gauges.
+        self._last_wake_shard: np.ndarray | None = None
         self._last_bucket_k = 0
         self._sched_mode: str | None = None
         # Adaptive outbox-compaction capacity: grows x8 on overflow and
@@ -642,6 +689,12 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         if self._active_set:
             _m_wake_frac.set(
                 round(self._last_wake_rows / max(1, self.P), 6), node=node)
+            if self._mesh is not None and self._last_wake_shard is not None:
+                # Per-shard wake fractions (the sharded scheduler's skew
+                # view): shard s woke counts[s] of its P/shards rows.
+                for s, c in enumerate(self._last_wake_shard):
+                    _m_wake_frac.set(round(int(c) / max(1, self._shard_rows), 6),
+                                     node=node, shard=s)
             _m_bucket.set(self._last_bucket_k, node=node)
             _m_sched_ticks.set(self.active_sched_ticks, node=node)
             _m_fallback_ticks.set(self.active_fallback_ticks, node=node)
@@ -973,6 +1026,11 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             wake[gp] = True
         G = np.nonzero(wake)[0]
         self._last_wake_rows = len(G)  # scrape-time wake-fraction gauge
+        if self._mesh is not None:
+            # Per-shard wake split (telemetry; the plan recomputes its own
+            # counts from the same G).
+            self._last_wake_shard = np.bincount(G // self._shard_rows,
+                                                minlength=self._shards)
         if len(G) > self.active_fallback_frac * self.P:
             return None
         return G
@@ -993,8 +1051,7 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         mirrors, so overwriting them is safe even with that finish
         pending."""
         st = self.state
-        v = torch.stack([st.elapsed, st.timeout, st.hb_elapsed, st.role,
-                         st.leader]).cpu().numpy()
+        v = self._read_rows(st.elapsed, st.timeout, st.hb_elapsed, st.role, st.leader)
         self.active_refetches += 1
         self._h_elapsed = v[0].copy()
         self._h_timeout = v[1].copy()
@@ -1002,10 +1059,14 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         return v[3].astype(np.int64), v[4].astype(np.int64)
 
     def _step_active(self, G: np.ndarray, k: int, vals: np.ndarray,
-                     pf: np.ndarray, window: int, prof):
+                     pf: np.ndarray, window: int, prof, plan=None):
         """Gather the active rows into the bucket, run the compact window
         step, and scatter back fused with the quiescent decay. Returns (new
-        full state, flat output or None, upload bytes, fetch bytes)."""
+        full state, flat output or None, upload bytes, fetch bytes).
+        ``plan`` is a mesh engine's :class:`~josefine_tpu_torch.parallel.
+        sharded.ShardPlan`: gather, step, decay and scatter then run per
+        shard (folded into "dispatch"), and the output is one flat per
+        shard, each ending with the psum lane."""
         A = len(G)
         dev = self._device
         python = self._backend == "python"
@@ -1017,10 +1078,28 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                 if python:
                     new_state = _py_decay_scatter(self.params, self.state, pf,
                                                   None, None, window)
+                elif self._mesh is not None:
+                    new_state = sh.make_sharded_decay_only(self._mesh, window)(
+                        self._sh_params, self.state, self._per_shard(pf))
                 else:
                     new_state = _decay_only_fn(window)(
                         self.params, self.state, host_to(pf, dev))
             return new_state, None, 0, 0
+        if plan is not None:
+            rp = self._routed_plane
+            vals_sh = plan.scatter_vals(vals)
+            devs = self._shard_devs
+            with prof.phase("dispatch"):
+                fn = sh.make_sharded_active_window(self._mesh, plan.k, window, self.N,
+                                                   rp is not None)
+                new_state, flats = fn(
+                    self._sh_params, self.member, self._sh_me, self.state,
+                    [host_to(vals_sh[s], d) for s, d in enumerate(devs)],
+                    self._per_shard(pf),
+                    [host_to(plan.idx[s].astype(np.int64), d) for s, d in enumerate(devs)],
+                    rp)
+            return (new_state, flats, int(plan.idx.nbytes + vals_sh.nbytes),
+                    sum(f.numel() for f in flats) * 4)
         idx = np.full(k, self.P, np.int64)
         idx[:A] = G
         rp = self._routed_plane
@@ -1049,6 +1128,104 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                 new_state = _decay_scatter_fn(window)(
                     self.params, self.state, pf_dev, idx_dev, new_rows)
         return new_state, flat, int(idx.nbytes + vals.nbytes), flat.numel() * 4
+
+    # ------------------------------------------------------- mesh engines
+
+    def _per_shard(self, a: np.ndarray) -> list[torch.Tensor]:
+        """One host array uploaded once per distinct shard device, listed
+        per shard."""
+        on: dict[str, torch.Tensor] = {}
+        for d in self._shard_devs:
+            if str(d) not in on:
+                on[str(d)] = host_to(a, d)
+        return [on[str(d)] for d in self._shard_devs]
+
+    def _read_rows(self, *leaves) -> np.ndarray:
+        """(k, P, ...) int32 host copy of k state leaves (a device wait, so
+        never in ``tick_begin``'s steady state): on a mesh engine read shard
+        by shard and joined along P."""
+        if self._mesh is None:
+            return torch.stack([a.to(torch.int32) for a in leaves]).cpu().numpy()
+        return np.concatenate(
+            [torch.stack([a.parts[s].to(torch.int32) for a in leaves]).cpu().numpy()
+             for s in range(self._shards)], axis=1)
+
+    def _hold_rows(self, hold: np.ndarray, leaf):
+        """``where(hold, 0, leaf)`` over a (P,) leaf as a new tensor; on a
+        mesh engine per shard, the shards with no held row keep their
+        block."""
+        if self._mesh is None:
+            return torch.where(host_to(hold, self._device), 0, leaf)
+        L = self._shard_rows
+        parts = list(leaf.parts)
+        for s, part in enumerate(parts):
+            h = hold[s * L:(s + 1) * L]
+            if h.any():
+                parts[s] = torch.where(host_to(h, part.device), 0, part)
+        return sh.Shards(parts)
+
+    def _dense_sharded(self, in10: np.ndarray, pf: np.ndarray, window: int, rp):
+        """Dense IO on a mesh engine: the unsharded window step run on each
+        shard's rows (as GSPMD runs the JAX step over sharded inputs), the
+        outputs kept per shard until tick_fetch joins them in shard order."""
+        L, fn = self._shard_rows, _window_step_fn(window)
+        pfs = self._per_shard(pf)
+        sts, flats = [], []
+        for s, dev in enumerate(self._shard_devs):
+            st, flat = fn(self._sh_params[s], self.member.parts[s], self._sh_me[s],
+                          sh.shard_of(self.state, s), host_to(in10[:, s * L:(s + 1) * L], dev),
+                          pfs[s], None if rp is None else rp.parts[s])
+            sts.append(st)
+            flats.append(flat)
+        return sh.join_shards(sts), flats
+
+    def _sparse_sharded(self, idx: np.ndarray, vals: np.ndarray, pf: np.ndarray,
+                        window: int, rp):
+        """Sparse IO on a mesh engine: each shard steps its rows through the
+        unsharded sparse window with its share of the upload (local ids) and
+        compacts its own changed rows at ``min(k_out, L)``. The totals add
+        up to the global changed count, so a tick overflows exactly when
+        the unsharded compaction would, and below the capacity the shard
+        runs joined in shard order are the unsharded compaction's rows
+        (:meth:`_join_flats`); on overflow tick_finish fetches every
+        shard's dense outputs."""
+        L = self._shard_rows
+        fn = _sparse_window_fn(min(self._k_out, L), window)
+        pfs = self._per_shard(pf)
+        idx = np.asarray(idx, np.int64)
+        out = ([], [], [], [])
+        for s, dev in enumerate(self._shard_devs):
+            sel = (idx >= s * L) & (idx < (s + 1) * L)
+            res = fn(self._sh_params[s], self.member.parts[s], self._sh_me[s],
+                     sh.shard_of(self.state, s), pfs[s], host_to(idx[sel] - s * L, dev),
+                     host_to(vals[:, sel], dev), None if rp is None else rp.parts[s])
+            for acc, r in zip(out, res):
+                acc.append(r)
+        return sh.join_shards(out[0]), out[1], out[2], out[3]
+
+    def _join_flats(self, h: dict, flats: list[np.ndarray]) -> np.ndarray:
+        """A mesh engine's per-shard host flats in the layout tick_finish
+        reads: the active set's stack as is (its plan picks the rows), the
+        dense and sparse outputs joined into the unsharded layout."""
+        N, L = self.N, self._shard_rows
+        if h["mode"] == "active":
+            return np.stack(flats)
+        if h["mode"] == "dense":
+            sv = np.concatenate([f[:10 * L].reshape(10, L) for f in flats], axis=1)
+            ov = np.concatenate([f[10 * L:].reshape(9, L, N) for f in flats], axis=1)
+            return np.concatenate([sv.reshape(-1), ov.reshape(-1)])
+        k_out, C = h["k_out"], 10 + 9 * N
+        k = min(k_out, L)
+        totals = [int(f[0]) for f in flats]
+        total = sum(totals)
+        out = np.zeros(1 + k_out + k_out * C, np.int32)
+        out[0] = total
+        if total <= k_out:
+            out[1:1 + total] = np.concatenate(
+                [f[1:1 + t] + s * L for s, (f, t) in enumerate(zip(flats, totals))])
+            out[1 + k_out:1 + k_out + total * C] = np.concatenate(
+                [f[1 + k:].reshape(k, C)[:t].reshape(-1) for f, t in zip(flats, totals)])
+        return out
 
     def _decay_mirrors(self, G: np.ndarray, window: int, pf: np.ndarray) -> None:
         """Host twin of the device decay, applied to the QUIESCENT rows'
@@ -1113,8 +1290,8 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             pidx_l = list(self._parole)
             hold = np.zeros(self.P, bool)
             hold[pidx_l] = True
-            self.state = self.state.replace(elapsed=torch.where(
-                host_to(hold, dev), 0, self.state.elapsed))
+            self.state = self.state.replace(elapsed=self._hold_rows(
+                hold, self.state.elapsed))
             # Keep the host timer mirror in lockstep with the device hold.
             self._h_elapsed[pidx_l] = 0
         if self._nxt_fixups:
@@ -1167,18 +1344,27 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                                      wake_rows=self._last_wake_rows)
                 self._sched_mode = mode
         if G is not None:
-            k = active_bucket(len(G), self.P)
+            plan = None
+            if self._mesh is not None:
+                # Shard-local schedule: G split per 'p' shard, the
+                # per-shard power-of-8 bucket setting each shard's layout.
+                # The host inbox is built compactly in G order and remapped
+                # shard-major by the plan.
+                plan = sh.ShardPlan(G, self.P, self._shards)
+                k, build_k = plan.k, max(len(G), 1)
+            else:
+                k = build_k = active_bucket(len(G), self.P)
             self._last_bucket_k = k
             with prof.phase("inbox"):
                 # Compact-domain inbox: rows line up with the gathered
                 # state rows (G is a superset of every pending group).
-                vals, staged, deferred, deferred_b = self._build_inbox_active(G, k)
+                vals, staged, deferred, deferred_b = self._build_inbox_active(G, build_k)
             new_state, flat, upload, fetchb = self._step_active(
-                G, k, vals, pf, window, prof)
+                G, k, vals, pf, window, prof, plan)
             with prof.phase("decay"):
                 self._decay_mirrors(G, window, pf)
-            h = {"mode": "active", "G": G, "k": k, "upload_bytes": upload,
-                 "fetch_bytes": fetchb}
+            h = {"mode": "active", "G": G, "k": k, "plan": plan,
+                 "upload_bytes": upload, "fetch_bytes": fetchb}
             self._sched_pending.append(G)
         elif self._sparse:
             with prof.phase("inbox"):
@@ -1189,6 +1375,9 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                     new_state, flat, sv, ov = _py_sparse_window(
                         self._k_out, self.params, self.member, self._me_dev,
                         self.state, pf, idx, vals, ticks=window, routed=rp)
+                elif self._mesh is not None:
+                    new_state, flat, sv, ov = self._sparse_sharded(
+                        idx, vals, pf, window, rp)
                 else:
                     # The routed plane is dense-addressed: routed rows
                     # never join the sparse upload.
@@ -1199,7 +1388,7 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             # compaction overflow.
             h = {"mode": "sparse", "sv": sv, "ov": ov, "k_out": self._k_out,
                  "upload_bytes": int(idx.nbytes + vals.nbytes),
-                 "fetch_bytes": flat.numel() * 4}
+                 "fetch_bytes": _numel(flat) * 4}
         else:
             with prof.phase("inbox"):
                 in10, staged, deferred, deferred_b = self._build_inbox()
@@ -1229,12 +1418,14 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                     new_state, flat = _py_packed_window(
                         self.params, self.member, self._me_dev, self.state,
                         in10, pf, ticks=window)
+                elif self._mesh is not None:
+                    new_state, flat = self._dense_sharded(in10, pf, window, rp)
                 else:
                     new_state, flat = _window_step_fn(window)(
                         self.params, self.member, self._me_dev, self.state,
                         host_to(in10, dev), host_to(pf, dev), rp)
             h = {"mode": "dense", "upload_bytes": int(in10.nbytes),
-                 "fetch_bytes": flat.numel() * 4}
+                 "fetch_bytes": _numel(flat) * 4}
         if self._routed_blocks:
             # Ring-fed payload spans (consumed above): pre-staged blocks
             # for exactly this dispatch — tick_finish's chain adoption
@@ -1246,7 +1437,18 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # from it, on the device, in this tick's finish (route.py _src_ov).
         h["dev_flat"] = flat
         ready = None
-        if flat is not None and flat.is_cuda:
+        if isinstance(flat, list):
+            # A mesh engine's per-shard outputs: one copy per shard, each
+            # with the event of its own device's stream; tick_fetch joins
+            # them in shard order.
+            ready = []
+            for i, f in enumerate(flat):
+                if f.is_cuda:
+                    flat[i] = f.to("cpu", non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(f.device))
+                    ready.append(ev)
+        elif flat is not None and flat.is_cuda:
             # The tick's one device->host copy, started now into pinned
             # memory; tick_fetch waits for it alone.
             flat = flat.to("cpu", non_blocking=True)
@@ -1281,11 +1483,16 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         if "flat_np" not in h:
             with self.profiler.phase("fetch"):
                 ready = h.pop("ready")
-                if ready is not None:
-                    ready.synchronize()
+                for ev in (ready if isinstance(ready, list) else (ready,)):
+                    if ev is not None:
+                        ev.synchronize()
                 # flat is None on an all-quiescent active tick (nothing to
                 # fetch: the decay program is the whole device step).
-                h["flat_np"] = None if h["flat"] is None else h["flat"].numpy()
+                flat = h["flat"]
+                if isinstance(flat, list):
+                    h["flat_np"] = self._join_flats(h, [f.numpy() for f in flat])
+                else:
+                    h["flat_np"] = None if flat is None else flat.numpy()
             self._tick_inflight = False
         return h
 
@@ -1366,7 +1573,14 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             # every row needing host work and of every proposal group.
             proc = h["G"].astype(np.int64, copy=False)
             A = len(proc)
-            if A:
+            if A and h["plan"] is not None:
+                # Mesh engine: the per-shard flats, picked back into G
+                # order; the psum lane must count the whole schedule.
+                sv13, ov_c, total = h["plan"].gather_flat(h["flat_np"], self.N)
+                if total != A:
+                    raise RuntimeError(f"psum lane counted {total} scheduled rows, "
+                                       f"the schedule has {A}")
+            elif A:
                 flat = h["flat_np"]
                 cut = _MIRROR13_ROWS * h["k"]
                 sv13 = (flat[:cut].reshape(_MIRROR13_ROWS, h["k"])
@@ -1396,8 +1610,8 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                 # fetch the dense device-resident outputs — correct, just
                 # a bigger transfer — and grow the bucket.
                 with self.profiler.phase("fetch"):
-                    sv32 = h["sv"].cpu().numpy()
-                    ov = h["ov"].cpu().numpy()
+                    sv32 = _read_joined(h["sv"], axis=1)
+                    ov = _read_joined(h["ov"], axis=1)
                 # Counted at the int32 wire width, before the int64 cast.
                 sv = sv32.astype(np.int64, copy=False)
                 h["fetch_bytes"] += sv32.nbytes + ov.nbytes
@@ -1958,6 +2172,16 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         lane = self._lease
         if self._backend == "python":
             self._lease_plane = lane.plane_np
+        elif self._mesh is not None:
+            # Co-sharded with the state on 'p': the first refresh splits
+            # the mirror, later ones select the changed rows shard by shard.
+            if self._lease_plane is None:
+                self._lease_plane = sh.place_lease_plane(self._mesh, lane.plane_np)
+            else:
+                mask = np.zeros(self.P, bool)
+                mask[rows] = True
+                self._lease_plane = sh.lease_plane_select(self._lease_plane, mask,
+                                                          lane.plane_np)
         elif self._lease_plane is None:
             self._lease_plane = host_to(lane.plane_np, self._device)
         else:
@@ -2077,8 +2301,7 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         led = [g for g in groups if self.is_leader(g)]
         if not led:
             return {}
-        both = torch.stack([self.state.match.s,
-                            self.member.to(torch.int32)]).cpu().numpy()
+        both = self._read_rows(self.state.match.s, self.member)
         ms, mask = both[0], both[1].astype(bool)
         recent = (self._ticks - self._h_last_seen) <= liveness_ticks
         out: dict[int, set[int]] = {}

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from josefine_tpu_torch.ops import ids
+from josefine_tpu_torch.parallel.sharded import Shards
 from josefine_tpu_torch.raft import rpc
 from josefine_tpu_torch.raft.chain import GENESIS, id_seq, id_term
 from josefine_tpu_torch.raft.fsm import Driver, Fsm, ReplicaDiverged, supports_snapshot
@@ -30,9 +31,12 @@ from josefine_tpu_torch.utils.tracing import get_logger
 log = get_logger("raft.engine")
 
 
-def set_row(t: torch.Tensor, g: int, v) -> torch.Tensor:
+def set_row(t, g: int, v):
     """``t[g] = v`` on a copy: the engine's state leaves are never written in
-    place (an in-flight pipelined dispatch may still read them)."""
+    place (an in-flight pipelined dispatch may still read them). A mesh
+    engine's leaf (:class:`Shards`) copies the owning shard's block only."""
+    if isinstance(t, Shards):
+        return t.set_row(g, v)
     y = t.clone()
     y[g] = v
     return y
@@ -83,9 +87,13 @@ class GroupAdmin:
         self._mask_np = m
         return self._place_member(m)
 
-    def _place_member(self, m) -> torch.Tensor:
+    def _place_member(self, m):
         """Device-place a (P, N) membership mask (a new tensor: the one an
-        in-flight dispatch reads is never written)."""
+        in-flight dispatch reads is never written). A mesh engine co-shards
+        it with the state rows, one block per shard: one global tensor here
+        would unshard it."""
+        if getattr(self, "_mesh", None) is not None:
+            return Shards.split(np.asarray(m, bool), self._shard_devs)
         return host_to(np.asarray(m, bool), self._device)
 
     def set_group_members(self, g: int, slots) -> None:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from josefine_tpu_torch.ops import ids
+from josefine_tpu_torch.parallel.sharded import Shards
 from josefine_tpu_torch.raft import rpc
 from josefine_tpu_torch.utils.tracing import get_logger
 
@@ -41,6 +42,15 @@ def host_to(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+def _put_fixups(nxt: ids.Bid, fx: np.ndarray, dev: torch.device) -> ids.Bid:
+    """``nxt[g, dst] = top`` for the (g, dst, top) rows of ``fx`` (unique
+    (g, dst) pairs), as new tensors."""
+    idx = (host_to(fx[:, 0], dev), host_to(fx[:, 1], dev))
+    t = host_to((fx[:, 2] >> 32).astype(np.int32), dev)
+    s = host_to((fx[:, 2] & 0xFFFFFFFF).astype(np.uint32).view(np.int32), dev)
+    return ids.Bid(nxt.t.index_put(idx, t), nxt.s.index_put(idx, s))
 
 
 class HostIO:
@@ -515,10 +525,18 @@ class HostIO:
         # _force_active; don't let it grow there.)
         if self._active_set:
             self._force_active.update(int(g) for g in fx[:, 0])
-        dev = self._device
-        idx = (host_to(fx[:, 0], dev), host_to(fx[:, 1], dev))
-        t = host_to((fx[:, 2] >> 32).astype(np.int32), dev)
-        s = host_to((fx[:, 2] & 0xFFFFFFFF).astype(np.uint32).view(np.int32), dev)
         nxt = self.state.nxt
-        self.state = self.state.replace(
-            nxt=ids.Bid(nxt.t.index_put(idx, t), nxt.s.index_put(idx, s)))
+        if getattr(self, "_mesh", None) is None:
+            self.state = self.state.replace(nxt=_put_fixups(nxt, fx, self._device))
+            return
+        # Mesh engine: each shard takes its own rows' fixups, with local
+        # ids, on its device; the other shards keep their blocks.
+        L = self._shard_rows
+        shard = fx[:, 0] // L
+        tp, sp = list(nxt.t.parts), list(nxt.s.parts)
+        for s in np.unique(shard).tolist():
+            f = fx[shard == s].copy()
+            f[:, 0] -= s * L
+            b = _put_fixups(ids.Bid(tp[s], sp[s]), f, tp[s].device)
+            tp[s], sp[s] = b.t, b.s
+        self.state = self.state.replace(nxt=ids.Bid(Shards(tp), Shards(sp)))

@@ -36,8 +36,11 @@ schedule can make a receiver adopt a torn slot.
 
 The port of the JAX package's ``raft/payload_ring.py``: the host metadata is
 the same; the buffer is a (P, S, W) int32 tensor on the engines' device
-(numpy for the python backend), and a mesh-sharded ring is not ported
-(ROADMAP Queue 1 item 10).
+(numpy for the python backend). On a fabric of sharded engines the buffer
+co-shards its group axis with their state (a
+:class:`~josefine_tpu_torch.parallel.sharded.Shards` of (L, S, W) blocks),
+and stage scatters and gathers run shard-local: a block's ring row IS its
+group row, so residency never crosses a shard.
 """
 
 from __future__ import annotations
@@ -45,6 +48,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from josefine_tpu_torch.parallel.sharded import (
+    Shards,
+    make_sharded_ring_gather,
+    make_sharded_ring_scatter,
+    mesh_shards,
+    shard_devices,
+    split_shard_rows,
+)
 from josefine_tpu_torch.raft.chain import Block
 from josefine_tpu_torch.raft.hostio import host_to
 from josefine_tpu_torch.raft.packed_step import _ring_gather, _ring_scatter
@@ -73,7 +84,7 @@ class PayloadRing:
     (see module docstring)."""
 
     def __init__(self, P: int, slots: int = 8, slot_bytes: int = 512,
-                 backend: str = "torch", device="cpu"):
+                 backend: str = "torch", device="cpu", mesh=None):
         if slots < 1:
             raise ValueError("payload ring needs >= 1 slot per group")
         self.P = int(P)
@@ -81,6 +92,8 @@ class PayloadRing:
         self.W = max(1, (int(slot_bytes) + 3) // 4)
         self.backend = backend
         self.device = torch.device(device)
+        # The sharded engines' 'p' mesh, or None (see module docstring).
+        self.mesh = mesh
         # (P, S, W) int32 device buffer (numpy for the scalar twin),
         # allocated on first stage so a ring-enabled but idle fabric costs
         # nothing.
@@ -157,6 +170,21 @@ class PayloadRing:
                 self.buf = np.zeros((self.P, self.S, self.W), np.int32)
             _ring_scatter(self.buf, gids, slots, words)
             return
+        if self.mesh is not None:
+            # Shard-local stage scatter, laid out per shard on the
+            # power-of-8 ladder as in the JAX ring.
+            Sh = mesh_shards(self.mesh)
+            L = self.P // Sh
+            if self.buf is None:
+                self.buf = Shards([torch.zeros((L, self.S, self.W), dtype=torch.int32,
+                                               device=d) for d in shard_devices(self.mesh)])
+            B, lgids, shard, pos = split_shard_rows(gids, Sh, L, cap=L * self.S)
+            sl = np.zeros((Sh, B), np.int32)
+            wd = np.zeros((Sh, B, self.W), np.int32)
+            sl[shard, pos] = slots
+            wd[shard, pos] = words
+            make_sharded_ring_scatter(self.mesh, B)(self.buf, lgids, sl, wd)
+            return
         if self.buf is None:
             self.buf = torch.zeros((self.P, self.S, self.W), dtype=torch.int32,
                                    device=self.device)
@@ -218,6 +246,16 @@ class PayloadRing:
         slots = np.fromiter((e.slot for _, e in needs), np.int64, n)
         if self.backend == "python":
             rows = _ring_gather(self.buf, gids, slots)
+        elif self.mesh is not None:
+            # Shard-local gather: per-shard slot reads come back (B, W) each
+            # and the host picks each entry by its (shard, pos) coordinates.
+            Sh = mesh_shards(self.mesh)
+            L = self.P // Sh
+            B, lgids, shard, pos = split_shard_rows(gids, Sh, L, cap=L * self.S)
+            sl = np.zeros((Sh, B), np.int32)
+            sl[shard, pos] = slots
+            got = make_sharded_ring_gather(self.mesh, B)(self.buf, lgids, sl)
+            rows = np.stack([t.cpu().numpy() for t in got])[shard, pos]
         else:
             dev = self.device
             rows = _ring_gather(self.buf, host_to(gids, dev),

@@ -55,9 +55,18 @@ orders every write before the read.
 The fabric is host-driver infrastructure, not wire transport: engines
 reached over TCP are simply never registered and keep the host path.
 
-The port of the JAX package's ``raft/route.py``, without its mesh-sharded
-branches (ROADMAP Queue 1 item 10). Planes and rings live on the engines'
-device; for the python backend they are numpy arrays.
+Sharded engines (``RaftEngine(mesh=...)``) all share ONE 'p' mesh, and the
+fabric's planes and rings co-shard with their state: a plane is a
+:class:`~josefine_tpu_torch.parallel.sharded.Shards` of (9, L, N) blocks
+along the group axis, and a routed row goes into the shard that owns its
+group (a routed row's source group and destination plane row are one group
+id, so nothing crosses shards). Mesh pushes always take the host-vals form:
+the engine's tick_finish fetched the compact outbox anyway, and a 36-byte
+row beats reading another shard's device output.
+
+The port of the JAX package's ``raft/route.py``. Planes and rings live on
+the engines' device (on each shard's, on a mesh); for the python backend
+they are numpy arrays.
 """
 
 from __future__ import annotations
@@ -65,6 +74,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from josefine_tpu_torch.parallel.sharded import (
+    Shards,
+    make_sharded_route_scatter,
+    mesh_shards,
+    purge_plane_row_masked,
+    split_shard_rows,
+)
 from josefine_tpu_torch.raft import rpc
 from josefine_tpu_torch.raft.group_admin import _PAROLE_DROP_ARR
 from josefine_tpu_torch.raft.hostio import host_to
@@ -144,6 +160,7 @@ class RouteFabric:
         self.N: int | None = None
         self.backend: str | None = None
         self.device: torch.device | None = None
+        self.mesh = None
         # Per-receiver staged (accumulating this round) and ready
         # (consumable at the next tick_begin) planes, plus the host-side
         # kind mirrors that back occupancy checks, wake scheduling,
@@ -168,11 +185,24 @@ class RouteFabric:
         """Join an engine to the fabric (idempotent per slot; re-register
         on restart — staged traffic for the dead incarnation is dropped,
         matching the loss of its in-process pending queues). Every engine
-        must share the fabric's P, N, backend and device."""
+        must share the fabric's P, N, backend and device. Sharded engines
+        are welcome: they must all share ONE 'p' mesh, and the fabric's
+        planes and rings co-shard with their state."""
+        if engine._mesh is not None and "p" not in engine._mesh.shape:
+            # Validate BEFORE adopting any engine attribute: a rejected
+            # first registration must not poison the fabric's shape/mesh
+            # for a later valid one.
+            raise ValueError("RouteFabric on a sharded engine needs a 'p' mesh axis")
         if self.P is None:
             self.P, self.N = engine.P, engine.N
             self.backend = engine._backend
             self.device = engine._device
+            self.mesh = engine._mesh
+        elif engine._mesh is not self.mesh and engine._mesh != self.mesh:
+            raise ValueError(
+                "fabric mesh mismatch: every registered engine must share the "
+                "fabric's mesh (mixing sharded and unsharded engines would "
+                "scatter across incompatible plane layouts)")
         if (engine.P, engine.N, engine._backend, engine._device) != (
                 self.P, self.N, self.backend, self.device):
             raise ValueError(
@@ -193,7 +223,7 @@ class RouteFabric:
             # payloads died with the process (same rule as the planes).
             self.rings[slot] = PayloadRing(
                 self.P, slots=self.ring_slots, slot_bytes=self.ring_bytes,
-                backend=self.backend, device=self.device)
+                backend=self.backend, device=self.device, mesh=self.mesh)
         self._refresh_trace()
 
     def _refresh_trace(self) -> None:
@@ -329,7 +359,7 @@ class RouteFabric:
             rs = np.nonzero(col)[0]
             if not len(rs) and not capped:
                 continue
-            if src_ov is None and len(rs):
+            if src_ov is None and len(rs) and self.mesh is None:
                 src_ov = self._src_ov(h)
             if len(rs):
                 routed[rs, d] = True
@@ -357,12 +387,22 @@ class RouteFabric:
                     engine.flight.emit_many(
                         engine._flight_tick(), "msg_sent", gids[rs],
                         terms_col, kind[rs, d], engine.me, d, "routed")
-                # Source row indexing: the active-compact outbox is indexed
-                # by bucket position (rs); dense and sparse sources are the
-                # dense (9, P, N) device outbox, indexed by group id.
-                srows = rs if h["mode"] == "active" else gids[rs]
-                self._push(engine, d, src_ov, srows, gids[rs],
-                           kind[rs, d], terms_col, d)
+                if self.mesh is not None:
+                    # Sharded fabric: push the host-fetched value columns
+                    # through the shard-local scatter (see module
+                    # docstring).
+                    self._push_vals(
+                        engine, d,
+                        np.stack([ov[i][rs, d] for i in range(9)]).astype(np.int32),
+                        gids[rs])
+                else:
+                    # Source row indexing: the active-compact outbox is
+                    # indexed by bucket position (rs); dense and sparse
+                    # sources are the dense (9, P, N) device outbox, indexed
+                    # by group id.
+                    srows = rs if h["mode"] == "active" else gids[rs]
+                    self._push(engine, d, src_ov, srows, gids[rs],
+                               kind[rs, d], terms_col, d)
             if capped:
                 crs = np.asarray([r for r, _ in capped], np.intp)
                 routed[crs, d] = True
@@ -459,6 +499,20 @@ class RouteFabric:
         chain read + wire round trip the host path would have paid."""
         _unique(gs)
         self._stage_kinds(sender, slot, gs, vals[0], vals[1])
+        if self.mesh is not None:
+            # Shard-local scatter into the co-sharded plane: per-shard local
+            # ids (padding L, dropped) and value columns, laid out on the
+            # per-shard power-of-8 ladder as the JAX fabric lays them out.
+            S = mesh_shards(self.mesh)
+            B, lids, shard, pos = split_shard_rows(gs, S, self.P // S)
+            vals_sh = np.zeros((S, 9, B), np.int32)
+            vals_sh[shard, :, pos] = vals.T
+            plane = self._staging.get(slot)
+            fn = make_sharded_route_scatter(self.mesh, B, self.P, self.N, plane is None)
+            me = int(sender.me)
+            self._staging[slot] = (fn(vals_sh, lids, me) if plane is None
+                                   else fn(plane, vals_sh, lids, me))
+            return
         plane = self._plane(slot)
         if self.backend != "python":
             vals, gs = host_to(vals, self.device), host_to(gs, self.device)
@@ -542,6 +596,10 @@ class RouteFabric:
                 free = rkm == 0
                 if self.backend == "python":
                     rdy[:, free] = stg[:, free]
+                elif self.mesh is not None:
+                    self._ready[slot] = Shards(
+                        [_merge_planes_fn(r, t) for r, t in zip(rdy.parts, stg.parts)],
+                        axis=1)
                 else:
                     self._ready[slot] = _merge_planes_fn(rdy, stg)
                 rtm = self._ready_terms.get(slot)
@@ -600,10 +658,14 @@ class RouteFabric:
             sel = (row != 0) if sel_kinds is None else np.isin(row, sel_kinds)
             if not sel.any():
                 continue
-            cols = np.nonzero(sel)[0]
-            if self.backend != "python":
-                cols = host_to(cols, self.device)
-            _purge_plane_row_fn(planes[slot], g, cols)
+            if self.mesh is not None:
+                # The owning shard alone purges its row.
+                planes[slot] = purge_plane_row_masked(planes[slot], g, ~sel)
+            else:
+                cols = np.nonzero(sel)[0]
+                if self.backend != "python":
+                    cols = host_to(cols, self.device)
+                _purge_plane_row_fn(planes[slot], g, cols)
             row[sel] = 0
             tm = terms.get(slot)
             if tm is not None:

@@ -160,3 +160,34 @@ def test_traffic_bench_runs_on_the_host():
     assert {"dispatch", "apply", "decode"} <= set(row["profile_ms_per_tick"])
     assert row["device_busy"] is None and row["card_ticks_begun"] == 0
     assert row["backpressure"]["errors"] == 0
+
+
+def test_sharded_step_parity_runs_on_the_host(capsys):
+    """Phase 11a's simulation check on meshes of host shards at a tiny
+    size: the sharded cluster step at (8, 1) and (2, 4) equals the
+    unsharded one every tick, and every group elects and commits."""
+    chip_smoke.sharded_step_parity(torch.device("cpu"), P=64, ticks=40)
+    assert capsys.readouterr().out.count("sharded step parity ok") == 2
+
+
+def test_engine_mesh_parity_runs_on_the_host(capsys):
+    """Phase 11a's engine twins with both sides on 8 host shards at a tiny
+    size: every tick compared exactly (mirrors, state, chains, wire, the
+    fabric), both meshes, and the gates hold (compacted ticks, routed rows,
+    one leader per group, the per-shard wake split equal to the
+    schedule)."""
+    chip_smoke.engine_mesh_parity(torch.device("cpu"), P=64, ticks=60)
+    assert capsys.readouterr().out.count("engine mesh parity ok") == 2
+
+
+def test_podsim_bench_runs_on_the_host():
+    """Phase 11b at a toy size on the host: both rows, their gates (every
+    group elects and commits; the engine row's fallback rounds only at the
+    heartbeat horizon) and the fields phase 11 prints."""
+    rows = chip_smoke.podsim_bench("cpu", per_device=256, devices=8, engine_per_device=256,
+                                   device="cpu", tenants=20, offered=16)
+    sim, eng = rows["simulation"], rows["engine"]
+    assert sim["P"] == 2048 and sim["mesh"] == "cpu x8" and sim["ms_per_tick"] > 0
+    assert eng["leaders_after_settle"] == 2048 and eng["committed_group_advances"] > 0
+    assert eng["ticks"] == 160 and len(eng["shard_wake_frac"]) == 8
+    assert eng["fallback_at_ticks"] == [256]

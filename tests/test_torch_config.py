@@ -39,11 +39,15 @@ def test_engine_rejects_an_unknown_device():
 
 
 def test_mesh_shards_raise_until_the_engine_shards():
+    """The engine shards now: ``mesh_shards`` validates when it divides the
+    partitions, and a count that does not divide them still raises."""
     EngineConfig(mesh_shards=0).validate()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        EngineConfig(partitions=8, mesh_shards=2).validate()
+    EngineConfig(partitions=8, mesh_shards=2).validate()
+    EngineConfig(partitions=8, mesh_shards=8, device="cpu").validate()
     with pytest.raises(ValueError, match="divisible"):
         EngineConfig(partitions=7, mesh_shards=2).validate()
+    with pytest.raises(ValueError, match=">= 0"):
+        EngineConfig(partitions=8, mesh_shards=-1).validate()
 
 
 def test_toml_and_environment_set_backend_and_device(tmp_path):

@@ -82,9 +82,25 @@ _MESH_BRANCH = '''        mesh = None
                     f"engine.mesh_shards={k} but only {len(devs)} devices")
             mesh = Mesh(_np.array(devs[:k]), ("p",))
 '''
-_NO_MESH = '''        # No device mesh: config.validate() above raises for
-        # engine.mesh_shards > 0, which the PyTorch engine does not take yet.
-        mesh = None
+_PORT_MESH_BRANCH = '''        mesh = None
+        if config.engine.mesh_shards:
+            # Shard the consensus-group axis over local devices (pure data
+            # parallelism — groups are independent; see RaftEngine mesh):
+            # distinct cards, or shards of the host where the engine runs on
+            # the CPU.
+            import torch
+
+            from josefine_tpu_torch.parallel.sharded import make_mesh
+
+            k = config.engine.mesh_shards
+            if config.engine.device == "cpu":
+                devs = [torch.device("cpu")] * k
+            else:
+                devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if len(devs) < k:
+                raise ValueError(
+                    f"engine.mesh_shards={k} but only {len(devs)} devices")
+            mesh = make_mesh(k, devices=devs)
 '''
 _BACKEND = '''            backend=config.engine.backend,
 '''
@@ -102,10 +118,12 @@ DIFFERENCES: dict[str, list[tuple[str, str, str]]] = {
         "nothing (tests/test_torch_independence.py).",
         _CODEC_AT_IMPORT, _CODEC_AT_FIRST_CALL)],
     "node.py": [
-        ("The JAX node builds a jax.sharding.Mesh when engine.mesh_shards is set; the "
-         "port imports no JAX, and its EngineConfig.validate (called first) raises "
-         "NotImplementedError for mesh_shards > 0 (ROADMAP item 10), so the branch goes.",
-         _MESH_BRANCH, _NO_MESH),
+        ("The JAX node builds a jax.sharding.Mesh over jax.devices() when "
+         "engine.mesh_shards is set; the port builds its own Mesh "
+         "(josefine_tpu_torch.parallel.sharded.make_mesh) over distinct cards, or over "
+         "shards of the host where engine.device is \"cpu\", and raises the same "
+         "ValueError when there are too few.",
+         _MESH_BRANCH, _PORT_MESH_BRANCH),
         ("The port's JosefineRaft also takes the engine's device: the card by default, "
          "the host where the config says \"cpu\".",
          _BACKEND, _BACKEND_AND_DEVICE),

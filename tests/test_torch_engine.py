@@ -31,6 +31,7 @@ from josefine_tpu.raft.engine import RaftEngine as JaxEngine
 from josefine_tpu.utils.kv import MemKV as JaxKV
 from josefine_tpu_torch import bench_engine, interop
 from josefine_tpu_torch.models.types import step_params
+from josefine_tpu_torch.parallel.sharded import Mesh, make_mesh
 from josefine_tpu_torch.raft.engine import RaftEngine
 from josefine_tpu_torch.raft.route import RouteFabric
 from josefine_tpu_torch.utils.kv import MemKV
@@ -566,12 +567,21 @@ async def test_twin_cluster_matches_jax_every_tick(name):
 
 
 def test_unported_options_raise():
-    """Only a device mesh still raises. The route fabric, the payload ring
-    and leases are accepted (with the JAX engine's own lease-parameter
-    check), as are sparse IO and the active set."""
+    """Every option is ported; what raises is what the JAX engine refuses.
+    A mesh needs the torch backend and must divide the groups (an active
+    set needs its 'p' axis). The route fabric, the payload ring and leases
+    are accepted (with the JAX engine's own lease-parameter check), as are
+    sparse IO and the active set."""
     kw = dict(kv=MemKV(), node_ids=IDS, self_id=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        RaftEngine(**kw, groups=8, mesh=object())
+    mesh = make_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="torch backend"):
+        RaftEngine(**kw, groups=8, mesh=mesh, backend="python")
+    with pytest.raises(ValueError, match="not divisible by mesh devices 2"):
+        RaftEngine(**kw, groups=7, mesh=mesh)
+    with pytest.raises(ValueError, match="'p' mesh axis"):
+        RaftEngine(**kw, groups=8, mesh=Mesh(["cpu"] * 2, ("x",)), active_set=True)
+    meshed = RaftEngine(**kw, groups=8, mesh=mesh, active_set=True)
+    assert (meshed._shards, meshed._shard_rows) == (2, 4)
     lease_params = step_params(timeout_min=4, timeout_max=8, hb_ticks=1, device="cpu")
     leased = RaftEngine(**kw, groups=8, leases=True, params=lease_params)
     assert leased.lease_summary() == {"held": 0, "credits": 0, "refused_pushes": 0,

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (every submodule, and
 ``chip_smoke.py``) loads neither JAX, flax nor the JAX package, and builds
-nothing; its entry points allocate on the card unless told otherwise."""
+nothing; its entry points allocate on the card unless told otherwise, and a
+mesh asked for on the card never falls back to the host."""
 
 import inspect
 import json
@@ -11,7 +12,14 @@ import sys
 import pytest
 import torch
 
-from josefine_tpu_torch import bench, bench_engine, bench_node, bench_server, interop
+from josefine_tpu_torch import (
+    bench,
+    bench_engine,
+    bench_node,
+    bench_podsim,
+    bench_server,
+    interop,
+)
 from josefine_tpu_torch.chaos.harness import ChaosCluster, MembershipChaosCluster
 from josefine_tpu_torch.chaos.search import ChaosSearch, Corpus
 from josefine_tpu_torch.chaos.soak import run_soak, run_soak_async
@@ -75,7 +83,9 @@ def test_port_imports_no_jax():
                  "josefine_tpu_torch.workload",
                  *(f"josefine_tpu_torch.workload.{m}" for m in (
                      "model", "schedule", "trace", "genome", "chaos_traffic", "driver",
-                     "wire"))):
+                     "wire")),
+                 "josefine_tpu_torch.parallel", "josefine_tpu_torch.parallel.sharded",
+                 "josefine_tpu_torch.bench_podsim"):
         assert name in out["imported"]
     after = os.listdir(_build.BUILD_DIR) if os.path.isdir(_build.BUILD_DIR) else []
     assert after == before, "importing the port must build nothing"
@@ -89,7 +99,9 @@ def test_port_imports_no_jax():
                                 JosefineRaft.__init__, bench_server.run, bench_node.run,
                                 ChaosCluster.__init__, MembershipChaosCluster.__init__,
                                 run_soak_async, WireCluster.__init__, run_wire_soak_async,
-                                ChaosSearch.__init__, TrafficEngine.__init__])
+                                ChaosSearch.__init__, TrafficEngine.__init__,
+                                bench_podsim.bench_row, bench_podsim.bench_engine_row,
+                                bench_podsim.mesh_devices])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -114,7 +126,9 @@ def test_default_device_raises_without_a_card():
                 lambda: run_soak(7, "leader-partition", horizon=2),
                 lambda: run_wire_soak(7, "wire-leader-partition"),
                 lambda: ChaosSearch(7, Corpus()),
-                lambda: TrafficEngine(WorkloadSpec(tenants=1), 7)):
+                lambda: TrafficEngine(WorkloadSpec(tenants=1), 7),
+                lambda: bench_podsim.bench_row(4, 2, ticks=1, warmup=1),
+                lambda: bench_podsim.main(["--devices", "2", "--per-device", "4"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -3,8 +3,8 @@ the JAX package's ``test_migration`` (row-to-row handoff on engines, the
 routed twin mid-pipelined dispatch, migration soaks, a migration through
 the metadata FSM on three nodes, the traffic driver's migration) and
 ``test_lease_safety`` (lease grants, expiry, the routed and pipelined
-twins, lease soaks) run against the port, every engine on the host
-(``device="cpu"``). The helpers they take from ``test_device_route``,
+twins, the leases-on against leases-off twin on a two-shard mesh, lease
+soaks) run against the port, every engine on the host (``device="cpu"``). The helpers they take from ``test_device_route``,
 ``test_active_set``, ``test_integration`` and ``test_partition_groups``
 come from those suites re-pointed at the port (``torch_parity``).
 """
@@ -26,10 +26,11 @@ _cases = [
          "from torch_parity import ListFsm, _wire_key"),
         ("from test_device_route import _assert_engines_equal",
          "from torch_parity import _assert_engines_equal"),
-    ], everywhere=[HOST["run_soak"]], leave_out={
-        "test_twin_differential_leases_sharded_mesh":
-            "shards the engine over a device mesh (sharding is ROADMAP item 10)",
-    }),
+        # The sharded twin's mesh: two shards of the host.
+        ("from jax.sharding import Mesh\n",
+         "from josefine_tpu_torch.parallel.sharded import Mesh\n"),
+        ("        devs = jax.devices()\n", '        devs = ["cpu"] * 8\n'),
+    ], everywhere=[HOST["run_soak"]]),
 ]
 _names = [set(c) - {"only_port_nodes"} for c in _cases]
 assert sum(map(len, _names)) == len(set().union(*_names)), "two suites share a case name"

@@ -17,7 +17,8 @@ builds a node of the JAX package fails (``only_port_nodes``). The fixed
 ports of the JAX suites move to their own 20,000s, so both can run at once.
 
 Then the port's own cases: the CLI in a subprocess, a node whose config
-names the card on a host without one, and a node asked for a device mesh.
+names the card on a host without one, and a node sharded over a device
+mesh (two shards of the host; too few cards raise).
 """
 
 import asyncio
@@ -178,10 +179,43 @@ def test_config_naming_the_card_raises_without_one(tmp_path):
 
 
 def test_node_with_a_device_mesh_raises(tmp_path):
-    """``engine.mesh_shards > 0`` is not ported: the node raises, naming
-    ROADMAP item 10, before it builds anything."""
+    """``engine.mesh_shards = 2``: on the CPU the node shards its engine
+    over two shards of the host, starts and serves Kafka; asked for the
+    card with too few cards it raises the JAX node's ValueError, naming the
+    count, before it builds the engine."""
     cfg = load_config(_example(tmp_path, "cpu", 26703, 28703))
     cfg.engine.mesh_shards = 2
     cfg.engine.partitions = 4
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_node.Node(cfg, in_memory=True)
+    node = port_node.Node(cfg, in_memory=True)
+    engine = node.raft.engine
+    assert (engine._shards, engine._shard_rows) == (2, 2)
+    assert [str(p.device) for p in engine.member.parts] == ["cpu", "cpu"]
+
+    async def serve():
+        shutdown = Shutdown()
+        task = asyncio.create_task(josefine_with_config(cfg, shutdown.clone()))
+        c = None
+        try:
+            for _ in range(240):
+                if task.done():
+                    task.result()
+                try:
+                    c = await kafka_client.connect("127.0.0.1", 28703)
+                    break
+                except OSError:
+                    await asyncio.sleep(0.25)
+            assert c is not None, "broker port never came up"
+            r = await asyncio.wait_for(c.send(ApiKey.API_VERSIONS, 2, {
+                "client_software_name": "t", "client_software_version": "1"}), 30)
+            assert r["error_code"] == 0
+            await c.close()
+        finally:
+            shutdown.shutdown()
+            await asyncio.wait_for(task, 60)
+
+    asyncio.run(serve())
+    if torch.cuda.device_count() < 2:
+        cfg.engine.device = "cuda"
+        with pytest.raises(ValueError, match=f"engine.mesh_shards=2 but only "
+                                             f"{torch.cuda.device_count()} devices"):
+            port_node.Node(cfg, in_memory=True)
