@@ -463,11 +463,13 @@ class _StrictCardTicks:
 
 
 def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
-               cut=lambda t: (), setup=None, on_tick=None, params_kw=None, bursts=1):
+               cut=lambda t: (), setup=None, on_tick=None, params_kw=None, bursts=1,
+               pipelined=False):
     """Clusters of 3 engines fed the same traffic for ``ticks`` split-phase
-    rounds: from tick 20, every second tick, ``bursts`` payloads each for
-    group 0 and 16 random groups, to whichever engine leads; messages are
-    delivered unless an end is in ``cut(t)``.
+    rounds (``tick_pipelined`` rounds with ``pipelined``, drained and
+    compared once more at the end): from tick 20, every second tick,
+    ``bursts`` payloads each for group 0 and 16 random groups, to whichever
+    engine leads; messages are delivered unless an end is in ``cut(t)``.
 
     ``sides`` lists ``(device, engine options, RouteFabric options or None,
     relation)``; a side with fabric options registers its engines on a
@@ -591,6 +593,10 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
             before = [[e.routed_msgs for e in engines] for engines, _, _ in built]
             results = []
             for engines, _, _ in built:
+                if pipelined:
+                    results.append([e.tick_pipelined(e.suggest_window(window(t)))
+                                    for e in engines])
+                    continue
                 hs = [e.tick_begin(e.suggest_window(window(t))) for e in engines]
                 results.append([e.tick_finish(h) for e, h in zip(engines, hs)])
             sent += sum(len(r.outbound) for r in results[0])
@@ -618,6 +624,13 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
                         for k in range(bursts):
                             engines[lead].propose(g, b"t%d-g%d-%d" % (t, g, k)
                                                   ).add_done_callback(_retrieve)
+        if pipelined:
+            drained = [[e.tick_drain() for e in engines] for engines, _, _ in built]
+            sent += sum(len(r.outbound) for r in drained[0])
+            for j, (_, _, _, rel) in enumerate(sides):
+                if rel is not None:
+                    kind, i = rel
+                    check(ticks, kind, built[i], built[j], drained[i], drained[j], [0] * 3)
         applied = [[f.applied for f in fsms] for _, fsms, _ in built]
         if any(a != applied[0] for a in applied) or not applied[0][0]:
             raise AssertionError("engine parity: group 0's FSMs differ or applied nothing")
@@ -628,13 +641,13 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
 
 
 def _twin_run(dev, P: int, ticks: int, seed: int, window=lambda t: 1, cut=lambda t: (),
-              setup=None, on_tick=None, **engine_kw):
+              setup=None, on_tick=None, pipelined=False, **engine_kw):
     """The same 3-engine cluster on the card (``dev``) and on the CPU
     (:func:`_run_sides`, relation ``"exact"``). Returns the card engines,
     their group-0 FSMs' applies and the number of messages compared."""
     sides, applied, sent, _ = _run_sides(
         P, ticks, seed, [(dev, engine_kw, None, None), ("cpu", engine_kw, None, ("exact", 0))],
-        window=window, cut=cut, setup=setup, on_tick=on_tick)
+        window=window, cut=cut, setup=setup, on_tick=on_tick, pipelined=pipelined)
     return sides[0][0], applied, sent
 
 
@@ -757,7 +770,47 @@ def engine_parity_scale(dev, P: int = 8192, ticks: int = 50) -> None:
                      f"{refetches} refetches (the only host waits in any card tick_begin)")
         else:
             line += "; no host wait in any card tick_begin"
+        line += _graph_counts(card, required=not active)
         print(f"{line}; {seconds:.1f} s", flush=True)
+
+
+def _graph_counts(card, required: bool) -> str:
+    """The card engines' sparse dispatches by kind (``raft/step_graph.py``),
+    for a check's line; with ``required`` at least one must have replayed
+    on a card. Engines on the host replay nothing."""
+    graphs = [e._step_graphs for e in card if e._step_graphs is not None]
+    if not graphs:
+        return "; no step graphs (host engines)"
+    eager, captures, replays = (sum(getattr(g, k) for g in graphs)
+                                for k in ("eager", "captures", "replays"))
+    if required and not replays:
+        raise AssertionError(f"no sparse step replayed from a graph: {eager} eager, "
+                             f"{captures} captures")
+    return (f"; step graphs: {captures} captures, {replays} replays, {eager} eager "
+            f"dispatches")
+
+
+def engine_parity_pipelined(dev, P: int = 8192, ticks: int = 160) -> None:
+    """Phase 6a, pipelined: the twin clusters (:func:`_twin_run`) with
+    sparse IO in ``tick_pipelined`` rounds at window 4 (1 while an engine
+    has a leaderless group), exact against the CPU every tick and after the
+    drain. On the card the sparse step replays from captured graphs, which
+    must begin tick n+1 before tick n's finish reads its outputs."""
+    windows = []
+    t0 = time.perf_counter()
+    card, applied, sent = _twin_run(
+        dev, P, ticks, seed=13, window=lambda t: 4, pipelined=True, sparse_io=True,
+        on_tick=lambda t, engines: windows.append(max(e.pipeline_window for e in engines)))
+    seconds = time.perf_counter() - t0
+    wide = sum(w == 4 for w in windows)
+    if not wide:
+        raise AssertionError("pipelined parity: no window-4 dispatch")
+    leaders = sum(int((e._h_role == 2).sum()) for e in card)
+    print(f"pipelined parity ok: P={P}, 3 sparse-IO engines on the card == 3 on the CPU for "
+          f"{ticks} pipelined ticks ({wide} of them at window 4) and the drain: {sent} "
+          f"outbound messages byte-equal, every mirror and state leaf equal; "
+          f"{len(applied[0])} blocks applied on group 0, {leaders} leaders"
+          f"{_graph_counts(card, required=True)}; {seconds:.1f} s", flush=True)
 
 
 def route_parity(dev, P_dense: int = 4096, P_scale: int = 8192, ticks: int = 80,
@@ -2140,10 +2193,12 @@ CHECKS = (
     ("8a", [("server_parity", {})]),
     ("7a sparse", [("route_parity", {"only": ["sparse", "sparse + active set"]})]),
     ("6a, 5a", [("engine_parity_scale", {}), ("engine_parity", {})]),
+    ("6a pipelined", [("engine_parity_pipelined", {})]),
 )
 CHECK_WORKERS = 5
 CHECK_TIMEOUT_S = 600  # a check's process is stopped, and fails, after this
-_CHECK_FUNCTIONS = frozenset({"engine_parity", "engine_parity_scale", "route_parity",
+_CHECK_FUNCTIONS = frozenset({"engine_parity", "engine_parity_scale",
+                              "engine_parity_pipelined", "route_parity",
                               "server_parity", "node_parity", "chaos_parity", "traffic_parity",
                               "sharded_step_parity", "engine_mesh_parity", "churn_parity"})
 

@@ -18,7 +18,8 @@ stalls the host on the card every tick, and a captured program cannot hold
 it at all. And ``np.*`` inside a program runs on the host, outside any
 stream. This family makes those disciplines machine-checked over the
 modules that build and dispatch the programs (``packed_step.py``,
-``engine.py``, ``route.py``, ``payload_ring.py``, ``parallel/``).
+``engine.py``, ``route.py``, ``payload_ring.py``, ``step_graph.py``,
+``parallel/``).
 
 Program discovery is module-local and conservative: seeds are functions
 decorated with ``@device_program`` (``josefine_tpu_torch.models.types``,
@@ -207,6 +208,7 @@ class DeviceDisciplineChecker(Checker):
         "josefine_tpu_torch/raft/engine.py",
         "josefine_tpu_torch/raft/route.py",
         "josefine_tpu_torch/raft/payload_ring.py",
+        "josefine_tpu_torch/raft/step_graph.py",
         "josefine_tpu_torch/parallel/",
     )
     rules = {

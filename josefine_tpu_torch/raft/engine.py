@@ -35,7 +35,9 @@ Device discipline: ``tick_begin`` never waits for the device. It uploads
 the packed inbox without a host sync, enqueues the window step, and starts
 one asynchronous copy of the flat output into pinned host memory;
 ``tick_fetch`` waits for that copy alone. A routed inbox plane is
-already on the device and merges inside the step. The one exception is the
+already on the device and merges inside the step. On a card, a
+single-card sparse dispatch without a routed plane replays the step from a
+captured CUDA graph (``raft/step_graph.py``). The one exception is the
 active-set scheduler's refetch of five (P,) vectors on re-entry after a
 dense/sparse fallback tick (``_refetch_wake_inputs``, counted in
 ``active_refetches``). A sparse tick whose changed rows overflow the
@@ -43,10 +45,12 @@ compaction capacity fetches the dense outputs in ``tick_finish``. State
 leaves are never written in place (an in-flight pipelined finish may still
 read them): every row write builds a new leaf.
 
-The engine is split across five modules, all state living on this class:
+The engine is split across six modules, all state living on this class:
 
 * ``raft/packed_step.py``: the dense, sparse and active-set window steps
   (two backends each);
+* ``raft/step_graph.py``: the sparse step's captured graphs
+  (:class:`StepGraphs`, one per engine that can replay them);
 * ``raft/snap_transfer.py``: snapshot capture, chunked transfer, install
   (:class:`SnapshotTransfer` mixin);
 * ``raft/group_admin.py``: membership mask, group lifecycle, vote parole,
@@ -78,7 +82,7 @@ from josefine_tpu_torch.models.types import (
 )
 from josefine_tpu_torch.ops import ids
 from josefine_tpu_torch.parallel import sharded as sh
-from josefine_tpu_torch.raft import rpc
+from josefine_tpu_torch.raft import rpc, step_graph
 from josefine_tpu_torch.raft.chain import GENESIS, Chain, id_term, id_seq
 from josefine_tpu_torch.raft.fsm import Driver, Fsm, ReplicaDiverged, supports_snapshot
 from josefine_tpu_torch.raft.group_admin import (
@@ -475,6 +479,13 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # on by default for large P, where dense per-tick transfers are
         # megabytes of zeros.
         self._sparse = (groups > _DENSE_MAX_GROUPS) if sparse_io is None else bool(sparse_io)
+        # The single-card sparse step replays as captured CUDA graphs
+        # (raft/step_graph.py) where the engine can run them: a card, the
+        # torch backend, no mesh. None elsewhere.
+        capture = (step_graph.capture_for(self._device)
+                   if self._sparse and backend == "torch" and mesh is None else None)
+        self._step_graphs = (None if capture is None
+                             else step_graph.StepGraphs(capture, self.self_id))
         # Active-set stepping (see the packed_step.py active-set
         # commentary): per tick the host proves which rows can change this
         # window (host_wake_mask over the mirrors below plus pending IO /
@@ -1393,6 +1404,10 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                 elif self._mesh is not None:
                     new_state, flat, sv, ov = self._sparse_sharded(
                         idx, vals, pf, window, rp)
+                elif self._step_graphs is not None:
+                    new_state, flat, sv, ov = self._step_graphs.dispatch(
+                        self._k_out, window, self.params, self.member, self._me_dev,
+                        self.state, pf, idx, vals, rp, prof)
                 else:
                     # The routed plane is dense-addressed: routed rows
                     # never join the sparse upload.

@@ -44,6 +44,15 @@ def host_to(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def host_into(dst: torch.Tensor, a: np.ndarray) -> None:
+    """:func:`host_to` into the existing tensor ``dst``, of ``a``'s shape
+    and dtype: one copy, with the same pinned staging and no wait."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dst.is_cuda:
+        t = t.pin_memory()
+    dst.copy_(t, non_blocking=True)
+
+
 def _put_fixups(nxt: ids.Bid, fx: np.ndarray, dev: torch.device) -> ids.Bid:
     """``nxt[g, dst] = top`` for the (g, dst, top) rows of ``fx`` (unique
     (g, dst) pairs), as new tensors."""

@@ -105,6 +105,13 @@ def test_scale_parity_runs_on_the_host(capsys):
     assert out.count("scale parity ok") == 2 and "refetches" in out
 
 
+def test_pipelined_parity_runs_on_the_host(capsys):
+    """Phase 6a's pipelined twin run with both clusters on the host at a
+    tiny size: every tick and the drain compared, window-4 ticks reached."""
+    chip_smoke.engine_parity_pipelined(torch.device("cpu"), P=256, ticks=100)
+    assert "pipelined parity ok" in capsys.readouterr().out
+
+
 def test_route_parity_runs_on_the_host(capsys):
     """Phase 7a with every side on the host at a tiny size: the fabric runs
     compare every tick (exact, routed == host-only, leases on == off on the
