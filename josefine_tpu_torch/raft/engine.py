@@ -40,8 +40,9 @@ single-card sparse dispatch without a routed plane replays the step from a
 captured CUDA graph (``raft/step_graph.py``). The one exception is the
 active-set scheduler's refetch of five (P,) vectors on re-entry after a
 dense/sparse fallback tick (``_refetch_wake_inputs``, counted in
-``active_refetches``). A sparse tick whose changed rows overflow the
-compaction capacity fetches the dense outputs in ``tick_finish``. State
+``active_refetches``, timed as the profiler's ``compact/refetch``). A
+sparse tick whose changed rows overflow the compaction capacity fetches
+the dense outputs in ``tick_finish``. State
 leaves are never written in place (an in-flight pipelined finish may still
 read them): every row write builds a new leaf.
 
@@ -526,10 +527,12 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         self._wake_role, self._wake_leader = self._h_role, self._h_leader
         # Scheduler observability (read by bench_engine's active-set rows):
         # ticks run compacted vs through the dense fallback, the summed
-        # active-row count, and the timer refetches (the one host wait a
-        # tick_begin may make).
+        # active-row count and the rows of the buckets gathered (padding
+        # included; an all-quiescent tick gathers none), and the timer
+        # refetches (the one host wait a tick_begin may make).
         self.active_sched_ticks = 0
         self.active_sched_rows = 0
+        self.active_bucket_rows = 0
         self.active_fallback_ticks = 0
         self.active_refetches = 0
         self._last_wake_rows = 0
@@ -1073,7 +1076,8 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         mirrors, so overwriting them is safe even with that finish
         pending."""
         st = self.state
-        v = self._read_rows(st.elapsed, st.timeout, st.hb_elapsed, st.role, st.leader)
+        with self.profiler.phase("refetch"):
+            v = self._read_rows(st.elapsed, st.timeout, st.hb_elapsed, st.role, st.leader)
         self.active_refetches += 1
         self._h_elapsed = v[0].copy()
         self._h_timeout = v[1].copy()
@@ -1381,6 +1385,8 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             else:
                 k = build_k = active_bucket(len(G), self.P)
             self._last_bucket_k = k
+            if len(G):
+                self.active_bucket_rows += k * self._shards
             with prof.phase("inbox"):
                 # Compact-domain inbox: rows line up with the gathered
                 # state rows (G is a superset of every pending group).
