@@ -771,23 +771,36 @@ def engine_parity_scale(dev, P: int = 8192, ticks: int = 50) -> None:
         else:
             line += "; no host wait in any card tick_begin"
         line += _graph_counts(card, required=not active)
+        if active:
+            line += _graph_counts(card, required=True, kind="active")
         print(f"{line}; {seconds:.1f} s", flush=True)
 
 
-def _graph_counts(card, required: bool) -> str:
-    """The card engines' sparse dispatches by kind (``raft/step_graph.py``),
-    for a check's line; with ``required`` at least one must have replayed
-    on a card. Engines on the host replay nothing."""
-    graphs = [e._step_graphs for e in card if e._step_graphs is not None]
+def _graph_counts(card, required: bool, kind: str = "step") -> str:
+    """The card engines' sparse dispatches (``kind`` "step") or compacted
+    active-set ticks ("active") by kind (``raft/step_graph.py``), for a
+    check's line; with ``required`` at least one must have been captured and
+    one replayed on a card. Engines on the host replay nothing."""
+    graphs = [g for g in (getattr(e, f"_{kind}_graphs") for e in card) if g is not None]
     if not graphs:
-        return "; no step graphs (host engines)"
+        return f"; no {kind} graphs (host engines)"
     eager, captures, replays = (sum(getattr(g, k) for g in graphs)
                                 for k in ("eager", "captures", "replays"))
-    if required and not replays:
-        raise AssertionError(f"no sparse step replayed from a graph: {eager} eager, "
-                             f"{captures} captures")
-    return (f"; step graphs: {captures} captures, {replays} replays, {eager} eager "
+    if required and not (captures and replays):
+        raise AssertionError(f"no {kind} graph replayed: {eager} eager, {captures} "
+                             f"captures, {replays} replays")
+    return (f"; {kind} graphs: {captures} captures, {replays} replays, {eager} eager "
             f"dispatches")
+
+
+def _active_graph_totals() -> tuple:
+    """The process's compacted active-set ticks so far, summed over the
+    nodes: (eager, captured, replayed) (``raft/step_graph.py``'s counters)."""
+    from josefine_tpu_torch.raft import step_graph  # noqa: F401 (registers the counters)
+    from josefine_tpu_torch.utils.metrics import REGISTRY
+
+    return tuple(sum(REGISTRY._metrics[f"raft_active_graph_{k}_total"].values.values())
+                 for k in ("eager", "captures", "replays"))
 
 
 def engine_parity_pipelined(dev, P: int = 8192, ticks: int = 160) -> None:
@@ -1159,6 +1172,7 @@ def engine_bench(card: str, P: int = 4096, warmup: int = 40, row: dict | None = 
     from josefine_tpu_torch.ops import fused_step
 
     launches0 = fused_step.launches
+    graphs0 = _active_graph_totals()
     if row is None:
         row = bench_engine.run(P=P, warmup=warmup, ticks=20, **kw)
     print(json.dumps(row), flush=True)
@@ -1191,9 +1205,12 @@ def engine_bench(card: str, P: int = 4096, warmup: int = 40, row: dict | None = 
               f"cudaLaunchKernel calls, {s['busy_ms']:.3f} ms of kernel time; most "
               f"launched: {s['top']} [{card}]", flush=True)
     if row["active_set"]:
+        eager, captures, replays = (b - a for a, b in zip(graphs0, _active_graph_totals()))
         print(f"engine path ({mode}), scheduler over the timed rounds: "
               f"{json.dumps(row['active_set_stats'])}; capacity history "
-              f"{row['k_out_history']} [{card}]", flush=True)
+              f"{row['k_out_history']}; compacted ticks over the run (warm-up "
+              f"included): {captures} captured, {replays} replayed, {eager} eager "
+              f"[{card}]", flush=True)
     elif row["sparse_io"]:
         print(f"engine path ({mode}), capacity history [round, k_out] per engine: "
               f"{row['k_out_history']} [{card}]", flush=True)

@@ -36,13 +36,13 @@ the packed inbox without a host sync, enqueues the window step, and starts
 one asynchronous copy of the flat output into pinned host memory;
 ``tick_fetch`` waits for that copy alone. A routed inbox plane is
 already on the device and merges inside the step. On a card, a
-single-card sparse dispatch without a routed plane replays the step from a
-captured CUDA graph (``raft/step_graph.py``). The one exception is the
-active-set scheduler's refetch of five (P,) vectors on re-entry after a
-dense/sparse fallback tick (``_refetch_wake_inputs``, counted in
-``active_refetches``, timed as the profiler's ``compact/refetch``). A
-sparse tick whose changed rows overflow the compaction capacity fetches
-the dense outputs in ``tick_finish``. State
+single-card sparse dispatch or compacted active-set tick without a routed
+plane replays from a captured CUDA graph (``raft/step_graph.py``). The one
+exception is the active-set scheduler's refetch of five (P,) vectors on
+re-entry after a dense/sparse fallback tick (``_refetch_wake_inputs``,
+counted in ``active_refetches``, timed as the profiler's
+``compact/refetch``). A sparse tick whose changed rows overflow the
+compaction capacity fetches the dense outputs in ``tick_finish``. State
 leaves are never written in place (an in-flight pipelined finish may still
 read them): every row write builds a new leaf.
 
@@ -50,8 +50,9 @@ The engine is split across six modules, all state living on this class:
 
 * ``raft/packed_step.py``: the dense, sparse and active-set window steps
   (two backends each);
-* ``raft/step_graph.py``: the sparse step's captured graphs
-  (:class:`StepGraphs`, one per engine that can replay them);
+* ``raft/step_graph.py``: the sparse step's and the compacted tick's
+  captured graphs (:class:`StepGraphs`, :class:`ActiveGraphs`, one each per
+  engine that can replay them);
 * ``raft/snap_transfer.py``: snapshot capture, chunked transfer, install
   (:class:`SnapshotTransfer` mixin);
 * ``raft/group_admin.py``: membership mask, group lifecycle, vote parole,
@@ -480,13 +481,17 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # on by default for large P, where dense per-tick transfers are
         # megabytes of zeros.
         self._sparse = (groups > _DENSE_MAX_GROUPS) if sparse_io is None else bool(sparse_io)
-        # The single-card sparse step replays as captured CUDA graphs
-        # (raft/step_graph.py) where the engine can run them: a card, the
-        # torch backend, no mesh. None elsewhere.
+        # The single-card sparse step and the active set's compacted tick
+        # replay as captured CUDA graphs (raft/step_graph.py) where the
+        # engine can run them: a card, the torch backend, no mesh. None
+        # elsewhere.
         capture = (step_graph.capture_for(self._device)
-                   if self._sparse and backend == "torch" and mesh is None else None)
-        self._step_graphs = (None if capture is None
-                             else step_graph.StepGraphs(capture, self.self_id))
+                   if (self._sparse or active_set) and backend == "torch" and mesh is None
+                   else None)
+        self._step_graphs = (step_graph.StepGraphs(capture, self.self_id)
+                             if capture is not None and self._sparse else None)
+        self._active_graphs = (step_graph.ActiveGraphs(capture, self.self_id)
+                               if capture is not None and active_set else None)
         # Active-set stepping (see the packed_step.py active-set
         # commentary): per tick the host proves which rows can change this
         # window (host_wake_mask over the mirrors below plus pending IO /
@@ -1087,8 +1092,9 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
     def _step_active(self, G: np.ndarray, k: int, vals: np.ndarray,
                      pf: np.ndarray, window: int, prof, plan=None):
         """Gather the active rows into the bucket, run the compact window
-        step, and scatter back fused with the quiescent decay. Returns (new
-        full state, flat output or None, upload bytes, fetch bytes).
+        step, and scatter back fused with the quiescent decay (on an engine
+        with active graphs, the three as one graph in "dispatch"). Returns
+        (new full state, flat output or None, upload bytes, fetch bytes).
         ``plan`` is a mesh engine's :class:`~josefine_tpu_torch.parallel.
         sharded.ShardPlan`: gather, step, decay and scatter then run per
         shard (folded into "dispatch"), and the output is one flat per
@@ -1142,6 +1148,13 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             with prof.phase("scatter"):
                 new_state = _py_decay_scatter(
                     self.params, self.state, pf, idx, new_rows, window)
+        elif (self._active_graphs is not None
+              and not self._active_graphs.runs_eager(k, window, self.params,
+                                                     self._me_dev, rp)):
+            with prof.phase("dispatch"):
+                new_state, flat = self._active_graphs.dispatch(
+                    window, self.params, self.member, self._me_dev, self.state,
+                    pf, idx, vals, prof)
         else:
             # The ids cross the bus at 32 bits, as in the JAX engine, and
             # are widened once on the card for the gathers and scatters.
@@ -1352,8 +1365,9 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         rp = self._routed_plane
         G = None
         if self._active_set:
-            # "compact" is entered twice per compacted tick: the predicate
-            # here and the gather in _step_active.
+            # "compact" is entered twice per eager compacted tick: the
+            # predicate here and the gather in _step_active. A replayed
+            # tick gathers inside "dispatch".
             with prof.phase("compact"):
                 G = self._schedule_active(window, pf)
             if G is None:

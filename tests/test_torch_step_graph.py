@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 
 from josefine_tpu_torch import interop
-from josefine_tpu_torch.models.types import step_params
+from josefine_tpu_torch.models.types import NodeState, step_params
 from josefine_tpu_torch.raft import step_graph
 from josefine_tpu_torch.raft.engine import RaftEngine
 from josefine_tpu_torch.raft.route import RouteFabric
@@ -36,6 +36,12 @@ IDS = [1, 2, 3]
 P = 512
 
 
+def _tensors(out):
+    """A captured function's outputs as tensors: a state's leaves in place
+    of the state."""
+    return [t for o in out for t in (o.leaves() if isinstance(o, NodeState) else (o,))]
+
+
 class _HostGraph:
     """A captured graph's stand-in: a replay writes the captured function's
     results into the outputs of the capture."""
@@ -44,15 +50,13 @@ class _HostGraph:
         self.fn, self.outs = fn, outs
 
     def replay(self):
-        st, flat, sv, ov = self.fn()
-        for dst, src in zip(self.outs, [*st.leaves(), flat, sv, ov]):
+        for dst, src in zip(self.outs, _tensors(self.fn())):
             dst.copy_(src)
 
 
 def host_capture(fn):
     out = fn()
-    st, flat, sv, ov = out
-    outs = [*st.leaves(), flat, sv, ov]
+    outs = _tensors(out)
     for t in outs:
         t.fill_(-7)
     return _HostGraph(fn, outs), out
@@ -72,11 +76,12 @@ def _retrieve(fut):
 
 
 class _Cluster:
-    """Three sparse-IO engines on the CPU, fed and delivered alike; with
-    ``graphs`` their sparse dispatches go through :func:`host_capture`, and
-    each engine's dispatch keys are logged as ``(K, k_out, window, routed)``."""
+    """Three sparse-IO engines on the CPU (``engine_kw`` to each), fed and
+    delivered alike; with ``graphs`` their captures go through
+    :func:`host_capture`, and each engine's sparse dispatch keys are logged
+    as ``(K, k_out, window, routed)``."""
 
-    def __init__(self, graphs: bool, monkeypatch, fabric: bool):
+    def __init__(self, graphs: bool, monkeypatch, fabric: bool, **engine_kw):
         self.fsms = [{g: _ListFsm() for g in (0, 1)} for _ in IDS]
         with monkeypatch.context() as m:
             if graphs:
@@ -85,7 +90,7 @@ class _Cluster:
                 RaftEngine(MemKV(), IDS, IDS[i], groups=P, fsms=self.fsms[i], base_seed=i,
                            params=step_params(timeout_min=3, timeout_max=8, hb_ticks=8,
                                               device="cpu"),
-                           sparse_io=True, device="cpu")
+                           sparse_io=True, device="cpu", **engine_kw)
                 for i in range(len(IDS))]
         self.fabric = None
         if fabric:
