@@ -526,7 +526,7 @@ def _run_sides(P: int, ticks: int, seed: int, sides, window=lambda t: 1,
 
         def src_ov(h):
             src = inner(h)
-            own = h["ov"] if h["mode"] == "sparse" else h["dev_flat"]
+            own = h["ov"]
             if not (src.device == fab.device and src.untyped_storage().data_ptr()
                     == own.untyped_storage().data_ptr()):
                 raise AssertionError("route parity: the scatter source is not the "
@@ -772,16 +772,17 @@ def engine_parity_scale(dev, P: int = 8192, ticks: int = 50) -> None:
             line += "; no host wait in any card tick_begin"
         line += _graph_counts(card, required=not active)
         if active:
-            line += _graph_counts(card, required=True, kind="active")
+            line += _graph_counts(card, required=True, kind="compacted")
         print(f"{line}; {seconds:.1f} s", flush=True)
 
 
-def _graph_counts(card, required: bool, kind: str = "step") -> str:
-    """The card engines' sparse dispatches (``kind`` "step") or compacted
-    active-set ticks ("active") by kind (``raft/step_graph.py``), for a
-    check's line; with ``required`` at least one must have been captured and
-    one replayed on a card. Engines on the host replay nothing."""
-    graphs = [g for g in (getattr(e, f"_{kind}_graphs") for e in card) if g is not None]
+def _graph_counts(card, required: bool, kind: str = "sparse") -> str:
+    """The card engines' sparse dispatches (``kind`` "sparse") or compacted
+    active-set ticks ("compacted") by kind (``raft/step_runner.py``'s graph
+    cache), for a check's line; with ``required`` at least one must have
+    been captured and one replayed on a card. Engines on the host replay
+    nothing."""
+    graphs = [e._runner.graphs.counts[kind] for e in card if e._runner.graphs is not None]
     if not graphs:
         return f"; no {kind} graphs (host engines)"
     eager, captures, replays = (sum(getattr(g, k) for g in graphs)
@@ -795,8 +796,8 @@ def _graph_counts(card, required: bool, kind: str = "step") -> str:
 
 def _active_graph_totals() -> tuple:
     """The process's compacted active-set ticks so far, summed over the
-    nodes: (eager, captured, replayed) (``raft/step_graph.py``'s counters)."""
-    from josefine_tpu_torch.raft import step_graph  # noqa: F401 (registers the counters)
+    nodes: (eager, captured, replayed) (``raft/step_runner.py``'s counters)."""
+    from josefine_tpu_torch.raft import step_runner  # noqa: F401 (registers the counters)
     from josefine_tpu_torch.utils.metrics import REGISTRY
 
     return tuple(sum(REGISTRY._metrics[f"raft_active_graph_{k}_total"].values.values())

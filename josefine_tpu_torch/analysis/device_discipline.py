@@ -18,7 +18,7 @@ stalls the host on the card every tick, and a captured program cannot hold
 it at all. And ``np.*`` inside a program runs on the host, outside any
 stream. This family makes those disciplines machine-checked over the
 modules that build and dispatch the programs (``packed_step.py``,
-``engine.py``, ``route.py``, ``payload_ring.py``, ``step_graph.py``,
+``engine.py``, ``route.py``, ``payload_ring.py``, ``step_runner.py``,
 ``parallel/``).
 
 Program discovery is module-local and conservative: seeds are functions
@@ -208,7 +208,7 @@ class DeviceDisciplineChecker(Checker):
         "josefine_tpu_torch/raft/engine.py",
         "josefine_tpu_torch/raft/route.py",
         "josefine_tpu_torch/raft/payload_ring.py",
-        "josefine_tpu_torch/raft/step_graph.py",
+        "josefine_tpu_torch/raft/step_runner.py",
         "josefine_tpu_torch/parallel/",
     )
     rules = {

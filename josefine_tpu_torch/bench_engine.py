@@ -88,16 +88,10 @@ from josefine_tpu_torch.raft import rpc
 from josefine_tpu_torch.raft.engine import RaftEngine
 from josefine_tpu_torch.raft.hostio import host_to
 from josefine_tpu_torch.raft.route import RouteFabric
-from josefine_tpu_torch.raft.packed_step import (
-    _active_window_fn,
-    _decay_scatter_fn,
-    _gather_active,
-    _sparse_window_fn,
-    _window_step_fn,
-    active_bucket,
-)
+from josefine_tpu_torch.raft.packed_step import _window_step_fn
 from josefine_tpu_torch.utils.kv import MemKV
 from josefine_tpu_torch.utils.metrics import REGISTRY
+from josefine_tpu_torch.utils.profiling import NULL_PROFILER
 
 N = 3
 PARTITIONS = 4096
@@ -202,58 +196,56 @@ def _kernel_kind(name: str) -> str:
 
 
 def _step_program(engine: RaftEngine, window: int):
-    """The window step the engine runs now, as a no-argument callable on
-    its current state with an empty inbox, and its name: the dense step,
-    the sparse step at the current capacity (touched-row bucket of 256,
-    all padding), or the active-set trio (gather, compact window,
-    decay-scatter) over a bucket of as many rows as its last schedule woke,
-    drawn at random. An engine on a route fabric merges an empty routed
-    plane, as its routed ticks do."""
-    dev, P, N = engine._device, engine.P, engine.N
-    base = (engine.params, engine.member, engine._me_dev, engine.state)
-    pf = host_to(np.zeros(N, np.int32), dev)
+    """The program the engine's step runner runs now, as a no-argument
+    callable on the engine's current state with an empty inbox, and its
+    name: the dense step, the sparse step at the current capacity
+    (touched-row bucket of 256, all padding), or the compacted tick over a
+    bucket of as many rows as its last schedule woke, drawn at random. An
+    engine on a route fabric merges an empty routed plane, as its routed
+    ticks do. On a card the sparse and compacted programs go through the
+    engine's graph cache, as its ticks do."""
+    r, P, N = engine._runner, engine.P, engine.N
+    pf = np.zeros(N, np.int32)
     plane = (None if engine._fabric is None
-             else torch.zeros((9, P, N), dtype=torch.int32, device=dev))
+             else torch.zeros((9, P, N), dtype=torch.int32, device=engine._device))
     routed = "" if plane is None else ", routed"
     if engine._active_set and engine._sched_mode == "compacted":
         A = max(1, engine._last_wake_rows)
-        k = active_bucket(A, P)
-        idx = np.full(k, P, np.int32)
-        idx[:A] = np.sort(np.random.default_rng(0).choice(P, A, replace=False))
-        idx = host_to(idx, dev).long()
-        vals = host_to(np.zeros((10, k, N), np.int32), dev)
-
-        def active():
-            st_c, mem_c = _gather_active(engine.state, engine.member, idx)
-            rows, flat = _active_window_fn(window)(engine.params, mem_c, engine._me_dev,
-                                                   st_c, vals, pf, plane, idx)
-            return _decay_scatter_fn(window)(engine.params, engine.state, pf, idx, rows), flat
-
-        return active, f"active (bucket {k} for {A} rows{routed})"
+        G = np.sort(np.random.default_rng(0).choice(P, A, replace=False))
+        k, build_k, plan = r.bucket(G)
+        vals = np.zeros((10, build_k, N), np.int32)
+        return (lambda: r.compacted(engine.state, engine.member, G, k, plan, vals, pf, window,
+                                    plane, NULL_PROFILER),
+                f"active (bucket {k} for {A} rows{routed})")
     if engine._sparse:
-        fn = _sparse_window_fn(engine._k_out, window)
-        idx = host_to(np.full(min(256, P), P, np.int32), dev)
-        vals = host_to(np.zeros((10, min(256, P), N), np.int32), dev)
-        return (lambda: fn(*base, pf, idx, vals, plane)), f"sparse (k_out {engine._k_out}{routed})"
-    fn = _window_step_fn(window)
-    in10 = host_to(np.zeros((10, P, N), np.int32), dev)
-    return (lambda: fn(*base, in10, pf, plane)), "dense" + (" (routed)" if routed else "")
+        idx = np.full(min(256, P), P, np.int32)
+        vals = np.zeros((10, len(idx), N), np.int32)
+        return (lambda: r.sparse(engine.state, engine.member, engine._k_out, idx, vals, pf,
+                                 window, plane, NULL_PROFILER),
+                f"sparse (k_out {engine._k_out}{routed})")
+    in10 = np.zeros((10, P, N), np.int32)
+    return (lambda: r.dense(engine.state, engine.member, in10, pf, window, plane,
+                            NULL_PROFILER),
+            "dense" + (" (routed)" if routed else ""))
 
 
 def window_step_profile(engine: RaftEngine, window: int, reps: int = 20) -> dict:
     """The step the engine runs (see :func:`_step_program`) alone, on the
-    card: ``events_ms``, the time CUDA events see per step over ``reps``
+    card, after two warm-up runs (a graph key's eager run and its capture):
+    ``events_ms``, the time CUDA events see per step over ``reps``
     back-to-back steps (device work plus the gaps the host leaves between
     launches); from one ``torch.profiler`` trace of one step, ``kernels``
     (device kernels and copies it ran), ``launch_calls``
-    (``cudaLaunchKernel`` calls on the host), ``busy_ms`` (the device time
-    of those kernels) and ``top`` (the most frequent kernel names)."""
+    (``cudaLaunchKernel`` calls on the host; a graph replay launches its
+    kernels in one ``cudaGraphLaunch``), ``busy_ms`` (the device time of
+    those kernels) and ``top`` (the most frequent kernel names)."""
     from collections import Counter
 
     from torch.autograd import DeviceType
 
     dev = engine._device
     fn, name = _step_program(engine, window)
+    fn()
     fn()
     torch.cuda.synchronize(dev)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

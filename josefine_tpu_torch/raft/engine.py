@@ -35,13 +35,14 @@ Device discipline: ``tick_begin`` never waits for the device. It uploads
 the packed inbox without a host sync, enqueues the window step, and starts
 one asynchronous copy of the flat output into pinned host memory;
 ``tick_fetch`` waits for that copy alone. A routed inbox plane is
-already on the device and merges inside the step. On a card, a
-single-card sparse dispatch or compacted active-set tick without a routed
-plane replays from a captured CUDA graph (``raft/step_graph.py``). The one
-exception is the active-set scheduler's refetch of five (P,) vectors on
-re-entry after a dense/sparse fallback tick (``_refetch_wake_inputs``,
-counted in ``active_refetches``, timed as the profiler's
-``compact/refetch``). A sparse tick whose changed rows overflow the
+already on the device and merges inside the step. How the step runs (the
+scalar oracle, per shard on a mesh, or on one torch device, where a card
+replays the sparse step and the compacted active-set tick from captured
+CUDA graphs) is the engine's step runner, picked once at construction
+(``raft/step_runner.py``). The one exception is the active-set
+scheduler's refetch of five (P,) vectors on re-entry after a dense/sparse
+fallback tick (``_refetch_wake_inputs``, counted in ``active_refetches``,
+timed as the profiler's ``compact/refetch``). A sparse tick whose changed rows overflow the
 compaction capacity fetches the dense outputs in ``tick_finish``. State
 leaves are never written in place (an in-flight pipelined finish may still
 read them): every row write builds a new leaf.
@@ -50,9 +51,9 @@ The engine is split across six modules, all state living on this class:
 
 * ``raft/packed_step.py``: the dense, sparse and active-set window steps
   (two backends each);
-* ``raft/step_graph.py``: the sparse step's and the compacted tick's
-  captured graphs (:class:`StepGraphs`, :class:`ActiveGraphs`, one each per
-  engine that can replay them);
+* ``raft/step_runner.py``: the four device programs of a tick (dense,
+  sparse, compacted, decay) and the runner that carries them, one per
+  engine, with its graph cache on a card;
 * ``raft/snap_transfer.py``: snapshot capture, chunked transfer, install
   (:class:`SnapshotTransfer` mixin);
 * ``raft/group_admin.py``: membership mask, group lifecycle, vote parole,
@@ -84,7 +85,7 @@ from josefine_tpu_torch.models.types import (
 )
 from josefine_tpu_torch.ops import ids
 from josefine_tpu_torch.parallel import sharded as sh
-from josefine_tpu_torch.raft import rpc, step_graph
+from josefine_tpu_torch.raft import rpc
 from josefine_tpu_torch.raft.chain import GENESIS, Chain, id_term, id_seq
 from josefine_tpu_torch.raft.fsm import Driver, Fsm, ReplicaDiverged, supports_snapshot
 from josefine_tpu_torch.raft.group_admin import (
@@ -103,26 +104,13 @@ from josefine_tpu_torch.raft.membership import ConfChange, MemberTable, is_conf
 from josefine_tpu_torch.raft.migration import is_migration_fence
 from josefine_tpu_torch.raft.packed_step import (
     _MIRROR13_ROWS,
-    _active_window_fn,
-    _decay_only_fn,
-    _decay_scatter_fn,
-    _gather_active,
-    _gather_routed,
     _lease_plane_scatter_fn,
-    _merge_routed,
     _node_view,
-    _py_active_window,
-    _py_decay_scatter,
-    _py_gather_active,
-    _py_packed_window,
-    _py_sparse_window,
-    _sparse_window_fn,
-    _window_step_fn,
-    active_bucket,
     host_wake_mask,
 )
 from josefine_tpu_torch.raft.result import NotLeader, TickResult
 from josefine_tpu_torch.raft.snap_transfer import SnapshotTransfer, _SnapStream
+from josefine_tpu_torch.raft.step_runner import step_runner
 from josefine_tpu_torch.utils.flight import FlightRecorder
 from josefine_tpu_torch.utils.health import HealthMonitor
 from josefine_tpu_torch.utils.kv import KV
@@ -220,7 +208,10 @@ _DENSE_MAX_GROUPS = 4096
 
 
 def _numel(flat) -> int:
-    """Elements of a step's flat output: one tensor, or one per shard."""
+    """Elements of a step's flat output: None, one tensor, or one per
+    shard."""
+    if flat is None:
+        return 0
     return sum(f.numel() for f in flat) if isinstance(flat, list) else flat.numel()
 
 
@@ -460,12 +451,13 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # Reused per-tick input buffer: nine packed message rows + the
         # proposal-count row (zeroed in place each tick, uploaded once).
         self._in10 = np.zeros((10, groups, self.N), np.int32)
-        self._me_dev = host_to(np.asarray([self.me], np.int64), self._device)
-        if mesh is not None:
-            # The step's params and slot id, one copy per shard's device.
-            on = sh._params_on(self.params, self._shard_devs)
-            self._sh_params = [on[str(d)] for d in self._shard_devs]
-            self._sh_me = self._per_shard(np.asarray([self.me], np.int64))
+        # How this engine's tick programs run, picked once (raft/
+        # step_runner.py): the scalar oracle, per shard on a mesh, or one
+        # torch device, which on a card replays the sparse step and the
+        # compacted tick from captured CUDA graphs.
+        self._runner = step_runner(backend, self._device, mesh, self.params, self.me,
+                                   groups, self.N, self.self_id)
+        self._me_dev = self._runner.me
         # Hot-path counters with the label key pre-resolved.
         self._c_in = _m_in.bind(node=self.self_id)
         # Per-(group, src) tick of the last delivered consensus message —
@@ -481,17 +473,6 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # on by default for large P, where dense per-tick transfers are
         # megabytes of zeros.
         self._sparse = (groups > _DENSE_MAX_GROUPS) if sparse_io is None else bool(sparse_io)
-        # The single-card sparse step and the active set's compacted tick
-        # replay as captured CUDA graphs (raft/step_graph.py) where the
-        # engine can run them: a card, the torch backend, no mesh. None
-        # elsewhere.
-        capture = (step_graph.capture_for(self._device)
-                   if (self._sparse or active_set) and backend == "torch" and mesh is None
-                   else None)
-        self._step_graphs = (step_graph.StepGraphs(capture, self.self_id)
-                             if capture is not None and self._sparse else None)
-        self._active_graphs = (step_graph.ActiveGraphs(capture, self.self_id)
-                               if capture is not None and active_set else None)
         # Active-set stepping (see the packed_step.py active-set
         # commentary): per tick the host proves which rows can change this
         # window (host_wake_mask over the mirrors below plus pending IO /
@@ -1089,97 +1070,24 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         self._h_hb = v[2].copy()
         return v[3].astype(np.int64), v[4].astype(np.int64)
 
-    def _step_active(self, G: np.ndarray, k: int, vals: np.ndarray,
-                     pf: np.ndarray, window: int, prof, plan=None):
-        """Gather the active rows into the bucket, run the compact window
-        step, and scatter back fused with the quiescent decay (on an engine
-        with active graphs, the three as one graph in "dispatch"). Returns
-        (new full state, flat output or None, upload bytes, fetch bytes).
-        ``plan`` is a mesh engine's :class:`~josefine_tpu_torch.parallel.
-        sharded.ShardPlan`: gather, step, decay and scatter then run per
-        shard (folded into "dispatch"), and the output is one flat per
-        shard, each ending with the psum lane."""
-        A = len(G)
-        dev = self._device
-        python = self._backend == "python"
-        if A == 0:
-            # All-quiescent tick: decay IS the device step; nothing to
-            # gather, step, or fetch. (Routed rows are forced awake by the
-            # scheduler, so a pending routed plane implies A > 0.)
-            with prof.phase("dispatch"):
-                if python:
-                    new_state = _py_decay_scatter(self.params, self.state, pf,
-                                                  None, None, window)
-                elif self._mesh is not None:
-                    new_state = sh.make_sharded_decay_only(self._mesh, window)(
-                        self._sh_params, self.state, self._per_shard(pf))
-                else:
-                    new_state = _decay_only_fn(window)(
-                        self.params, self.state, host_to(pf, dev))
-            return new_state, None, 0, 0
-        if plan is not None:
-            rp = self._routed_plane
-            vals_sh = plan.scatter_vals(vals)
-            devs = self._shard_devs
-            with prof.phase("dispatch"):
-                fn = sh.make_sharded_active_window(self._mesh, plan.k, window, self.N,
-                                                   rp is not None)
-                new_state, flats = fn(
-                    self._sh_params, self.member, self._sh_me, self.state,
-                    [host_to(vals_sh[s], d) for s, d in enumerate(devs)],
-                    self._per_shard(pf),
-                    [host_to(plan.idx[s], d).long() for s, d in enumerate(devs)],
-                    rp)
-            return (new_state, flats, int(plan.idx.nbytes + vals_sh.nbytes),
-                    sum(f.numel() for f in flats) * 4)
-        idx = np.full(k, self.P, np.int32)
-        idx[:A] = G
-        rp = self._routed_plane
-        if python:
-            with prof.phase("compact"):
-                state_c, member_c = _py_gather_active(self.state, self.member, idx)
-            if rp is not None:
-                # Scalar twin: the plane is numpy — merge on the host.
-                vals = _merge_routed(np, vals, _gather_routed(rp, idx))
-            with prof.phase("dispatch"):
-                new_rows, flat = _py_active_window(
-                    self.params, member_c, self._me_dev, state_c, vals, pf,
-                    window)
-            with prof.phase("scatter"):
-                new_state = _py_decay_scatter(
-                    self.params, self.state, pf, idx, new_rows, window)
-        elif (self._active_graphs is not None
-              and not self._active_graphs.runs_eager(k, window, self.params,
-                                                     self._me_dev, rp)):
-            with prof.phase("dispatch"):
-                new_state, flat = self._active_graphs.dispatch(
-                    window, self.params, self.member, self._me_dev, self.state,
-                    pf, idx, vals, prof)
-        else:
-            # The ids cross the bus at 32 bits, as in the JAX engine, and
-            # are widened once on the card for the gathers and scatters.
-            idx_dev, pf_dev = host_to(idx, dev).long(), host_to(pf, dev)
-            with prof.phase("compact"):
-                state_c, member_c = _gather_active(self.state, self.member, idx_dev)
-            with prof.phase("dispatch"):
-                new_rows, flat = _active_window_fn(window)(
-                    self.params, member_c, self._me_dev, state_c,
-                    host_to(vals, dev), pf_dev, rp, idx_dev)
-            with prof.phase("scatter"):
-                new_state = _decay_scatter_fn(window)(
-                    self.params, self.state, pf_dev, idx_dev, new_rows)
-        return new_state, flat, int(idx.nbytes + vals.nbytes), flat.numel() * 4
+    def _step_active(self, G: np.ndarray, k: int, plan, vals: np.ndarray,
+                     pf: np.ndarray, window: int, prof):
+        """The active set's device step: the all-quiescent decay when ``G``
+        is empty, else the compacted tick over the bucket of ``k`` rows
+        (``plan`` a mesh engine's). Returns (new full state, flat output,
+        outbox view, upload bytes), the flat and the view None when nothing
+        was gathered."""
+        if not len(G):
+            # Decay IS the device step; nothing to gather, step, or fetch.
+            # (Routed rows are forced awake by the scheduler, so a pending
+            # routed plane implies a row.)
+            return self._runner.decay(self.state, pf, window, prof), None, None, 0
+        new_state, flat, ov = self._runner.compacted(
+            self.state, self.member, G, k, plan, vals, pf, window, self._routed_plane, prof)
+        # Per shard: the bucket's int32 ids and its (10, k, N) int32 inbox.
+        return new_state, flat, ov, self._shards * k * (1 + 10 * self.N) * 4
 
     # ------------------------------------------------------- mesh engines
-
-    def _per_shard(self, a: np.ndarray) -> list[torch.Tensor]:
-        """One host array uploaded once per distinct shard device, listed
-        per shard."""
-        on: dict[str, torch.Tensor] = {}
-        for d in self._shard_devs:
-            if str(d) not in on:
-                on[str(d)] = host_to(a, d)
-        return [on[str(d)] for d in self._shard_devs]
 
     def _read_rows(self, *leaves) -> np.ndarray:
         """(k, P, ...) int32 host copy of k state leaves (a device wait, so
@@ -1204,71 +1112,6 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             if h.any():
                 parts[s] = torch.where(host_to(h, part.device), 0, part)
         return sh.Shards(parts)
-
-    def _dense_sharded(self, in10: np.ndarray, pf: np.ndarray, window: int, rp):
-        """Dense IO on a mesh engine: the unsharded window step run on each
-        shard's rows (as GSPMD runs the JAX step over sharded inputs), the
-        outputs kept per shard until tick_fetch joins them in shard order."""
-        L, fn = self._shard_rows, _window_step_fn(window)
-        pfs = self._per_shard(pf)
-        sts, flats = [], []
-        for s, dev in enumerate(self._shard_devs):
-            st, flat = fn(self._sh_params[s], self.member.parts[s], self._sh_me[s],
-                          sh.shard_of(self.state, s), host_to(in10[:, s * L:(s + 1) * L], dev),
-                          pfs[s], None if rp is None else rp.parts[s])
-            sts.append(st)
-            flats.append(flat)
-        return sh.join_shards(sts), flats
-
-    def _sparse_sharded(self, idx: np.ndarray, vals: np.ndarray, pf: np.ndarray,
-                        window: int, rp):
-        """Sparse IO on a mesh engine: each shard steps its rows through the
-        unsharded sparse window with its share of the upload (local ids) and
-        compacts its own changed rows at ``min(k_out, L)``. The totals add
-        up to the global changed count, so a tick overflows exactly when
-        the unsharded compaction would, and below the capacity the shard
-        runs joined in shard order are the unsharded compaction's rows
-        (:meth:`_join_flats`); on overflow tick_finish fetches every
-        shard's dense outputs."""
-        L = self._shard_rows
-        # The sparse capacity (grown on its overflow ladder) clamped to the fixed
-        # shard row count: a ladder value, not a raw count.
-        # graftlint: allow(dev-unbucketed-shape) — min of two ladder/init values
-        fn = _sparse_window_fn(min(self._k_out, L), window)
-        pfs = self._per_shard(pf)
-        out = ([], [], [], [])
-        for s, dev in enumerate(self._shard_devs):
-            sel = (idx >= s * L) & (idx < (s + 1) * L)
-            res = fn(self._sh_params[s], self.member.parts[s], self._sh_me[s],
-                     sh.shard_of(self.state, s), pfs[s], host_to(idx[sel] - s * L, dev),
-                     host_to(vals[:, sel], dev), None if rp is None else rp.parts[s])
-            for acc, r in zip(out, res):
-                acc.append(r)
-        return sh.join_shards(out[0]), out[1], out[2], out[3]
-
-    def _join_flats(self, h: dict, flats: list[np.ndarray]) -> np.ndarray:
-        """A mesh engine's per-shard host flats in the layout tick_finish
-        reads: the active set's stack as is (its plan picks the rows), the
-        dense and sparse outputs joined into the unsharded layout."""
-        N, L = self.N, self._shard_rows
-        if h["mode"] == "active":
-            return np.stack(flats)
-        if h["mode"] == "dense":
-            sv = np.concatenate([f[:10 * L].reshape(10, L) for f in flats], axis=1)
-            ov = np.concatenate([f[10 * L:].reshape(9, L, N) for f in flats], axis=1)
-            return np.concatenate([sv.reshape(-1), ov.reshape(-1)])
-        k_out, C = h["k_out"], 10 + 9 * N
-        k = min(k_out, L)
-        totals = [int(f[0]) for f in flats]
-        total = sum(totals)
-        out = np.zeros(1 + k_out + k_out * C, np.int32)
-        out[0] = total
-        if total <= k_out:
-            out[1:1 + total] = np.concatenate(
-                [f[1:1 + t] + s * L for s, (f, t) in enumerate(zip(flats, totals))])
-            out[1 + k_out:1 + k_out + total * C] = np.concatenate(
-                [f[1 + k:].reshape(k, C)[:t].reshape(-1) for f, t in zip(flats, totals)])
-        return out
 
     def _decay_mirrors(self, G: np.ndarray, window: int, pf: np.ndarray) -> None:
         """Host twin of the device decay, applied to the QUIESCENT rows'
@@ -1325,7 +1168,6 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         # before this tick's device step ran — this tick is already their
         # new incarnation and must NOT be suppressed.
         self._recycled_this_tick.clear()
-        dev = self._device
         if self._parole:
             # Vote parole: hold every paroled group's election timer at
             # zero so it can never reach candidacy. Grant-suppression
@@ -1361,13 +1203,13 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                             rterms[gi, si], self._routed_kinds[gi, si],
                             si, self.me, "routed")
         pf = self._peer_fresh(window)
-        python = self._backend == "python"
         rp = self._routed_plane
+        runner = self._runner
         G = None
         if self._active_set:
             # "compact" is entered twice per eager compacted tick: the
-            # predicate here and the gather in _step_active. A replayed
-            # tick gathers inside "dispatch".
+            # predicate here and the runner's gather. A replayed tick
+            # gathers inside "dispatch".
             with prof.phase("compact"):
                 G = self._schedule_active(window, pf)
             if G is None:
@@ -1388,16 +1230,7 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                                      wake_rows=self._last_wake_rows)
                 self._sched_mode = mode
         if G is not None:
-            plan = None
-            if self._mesh is not None:
-                # Shard-local schedule: G split per 'p' shard, the
-                # per-shard power-of-8 bucket setting each shard's layout.
-                # The host inbox is built compactly in G order and remapped
-                # shard-major by the plan.
-                plan = sh.ShardPlan(G, self.P, self._shards)
-                k, build_k = plan.k, max(len(G), 1)
-            else:
-                k = build_k = active_bucket(len(G), self.P)
+            k, build_k, plan = runner.bucket(G)
             self._last_bucket_k = k
             if len(G):
                 self.active_bucket_rows += k * self._shards
@@ -1405,40 +1238,22 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                 # Compact-domain inbox: rows line up with the gathered
                 # state rows (G is a superset of every pending group).
                 vals, staged, deferred, deferred_b = self._build_inbox_active(G, build_k)
-            new_state, flat, upload, fetchb = self._step_active(
-                G, k, vals, pf, window, prof, plan)
+            new_state, flat, ov, upload = self._step_active(
+                G, k, plan, vals, pf, window, prof)
             with prof.phase("decay"):
                 self._decay_mirrors(G, window, pf)
-            h = {"mode": "active", "G": G, "k": k, "plan": plan,
-                 "upload_bytes": upload, "fetch_bytes": fetchb}
+            h = {"mode": "active", "G": G, "k": k, "plan": plan, "upload_bytes": upload}
             self._sched_pending.append(G)
         elif self._sparse:
             with prof.phase("inbox"):
                 # Proposal staging (sparse row 9) happens in _pack_inbox_rows.
                 idx, vals, staged, deferred, deferred_b = self._build_inbox_sparse()
-            with prof.phase("dispatch"):
-                if python:
-                    new_state, flat, sv, ov = _py_sparse_window(
-                        self._k_out, self.params, self.member, self._me_dev,
-                        self.state, pf, idx, vals, ticks=window, routed=rp)
-                elif self._mesh is not None:
-                    new_state, flat, sv, ov = self._sparse_sharded(
-                        idx, vals, pf, window, rp)
-                elif self._step_graphs is not None:
-                    new_state, flat, sv, ov = self._step_graphs.dispatch(
-                        self._k_out, window, self.params, self.member, self._me_dev,
-                        self.state, pf, idx, vals, rp, prof)
-                else:
-                    # The routed plane is dense-addressed: routed rows
-                    # never join the sparse upload.
-                    new_state, flat, sv, ov = _sparse_window_fn(self._k_out, window)(
-                        self.params, self.member, self._me_dev, self.state,
-                        host_to(pf, dev), host_to(idx, dev), host_to(vals, dev), rp)
+            new_state, flat, sv, ov = runner.sparse(
+                self.state, self.member, self._k_out, idx, vals, pf, window, rp, prof)
             # sv/ov stay on the device; tick_finish fetches them only on a
             # compaction overflow.
-            h = {"mode": "sparse", "sv": sv, "ov": ov, "k_out": self._k_out,
-                 "upload_bytes": int(idx.nbytes + vals.nbytes),
-                 "fetch_bytes": _numel(flat) * 4}
+            h = {"mode": "sparse", "sv": sv, "k_out": self._k_out,
+                 "upload_bytes": int(idx.nbytes + vals.nbytes)}
         else:
             with prof.phase("inbox"):
                 in10, staged, deferred, deferred_b = self._build_inbox()
@@ -1459,23 +1274,9 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
                             si, self.me, "host")
                 else:
                     self._h_last_seen[in10[0] != rpc.MSG_NONE] = self._ticks
-            with prof.phase("dispatch"):
-                if python:
-                    if rp is not None:
-                        # Scalar twin: the plane is numpy — merge on the
-                        # host (the same _merge_routed the torch step runs).
-                        in10 = _merge_routed(np, in10, rp)
-                    new_state, flat = _py_packed_window(
-                        self.params, self.member, self._me_dev, self.state,
-                        in10, pf, ticks=window)
-                elif self._mesh is not None:
-                    new_state, flat = self._dense_sharded(in10, pf, window, rp)
-                else:
-                    new_state, flat = _window_step_fn(window)(
-                        self.params, self.member, self._me_dev, self.state,
-                        host_to(in10, dev), host_to(pf, dev), rp)
-            h = {"mode": "dense", "upload_bytes": int(in10.nbytes),
-                 "fetch_bytes": _numel(flat) * 4}
+            new_state, flat, ov = runner.dense(
+                self.state, self.member, in10, pf, window, rp, prof)
+            h = {"mode": "dense", "upload_bytes": int(in10.nbytes)}
         if self._routed_blocks:
             # Ring-fed payload spans (consumed above): pre-staged blocks
             # for exactly this dispatch — tick_finish's chain adoption
@@ -1483,28 +1284,12 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
             for g, blks in self._routed_blocks.items():
                 staged.setdefault(g, []).extend(blks)
         self._routed_blocks = None
-        # The step's own output stays referenced: the route fabric scatters
-        # from it, on the device, in this tick's finish (route.py _src_ov).
-        h["dev_flat"] = flat
-        ready = None
-        if isinstance(flat, list):
-            # A mesh engine's per-shard outputs: one copy per shard, each
-            # with the event of its own device's stream; tick_fetch joins
-            # them in shard order.
-            ready = []
-            for i, f in enumerate(flat):
-                if f.is_cuda:
-                    flat[i] = f.to("cpu", non_blocking=True)
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(f.device))
-                    ready.append(ev)
-        elif flat is not None and flat.is_cuda:
-            # The tick's one device->host copy, started now into pinned
-            # memory; tick_fetch waits for it alone.
-            flat = flat.to("cpu", non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        h.update(flat=flat, ready=ready, staged=staged, window=window)
+        # The step's own outbox stays on the device: the route fabric
+        # scatters from it in this tick's finish (route.py _src_ov). The
+        # tick's device->host copy starts now; tick_fetch waits for it alone.
+        h["fetch_bytes"] = _numel(flat) * 4
+        flat, ready = runner.fetch(flat)
+        h.update(ov=ov, flat=flat, ready=ready, staged=staged, window=window)
         self.state = new_state
         self._pending_msgs = deferred
         self._pending_batches = deferred_b
@@ -1543,17 +1328,11 @@ class RaftEngine(HostIO, GroupAdmin, SnapshotTransfer):
         (the host work then overlaps the new dispatch's device compute)."""
         if "flat_np" not in h:
             with self.profiler.phase("fetch"):
-                ready = h.pop("ready")
-                for ev in (ready if isinstance(ready, list) else (ready,)):
-                    if ev is not None:
-                        ev.synchronize()
+                for ev in h.pop("ready"):
+                    ev.synchronize()
                 # flat is None on an all-quiescent active tick (nothing to
                 # fetch: the decay program is the whole device step).
-                flat = h["flat"]
-                if isinstance(flat, list):
-                    h["flat_np"] = self._join_flats(h, [f.numpy() for f in flat])
-                else:
-                    h["flat_np"] = None if flat is None else flat.numpy()
+                h["flat_np"] = self._runner.join(h)
             self._tick_inflight = False
         return h
 

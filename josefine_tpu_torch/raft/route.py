@@ -85,7 +85,6 @@ from josefine_tpu_torch.raft import rpc
 from josefine_tpu_torch.raft.group_admin import _PAROLE_DROP_ARR
 from josefine_tpu_torch.raft.hostio import host_to
 from josefine_tpu_torch.raft.packed_step import (
-    _MIRROR13_ROWS,
     _merge_planes_fn,
     _purge_plane_row_fn,
     _route_scatter,
@@ -428,26 +427,10 @@ class RouteFabric:
 
     def _src_ov(self, h):
         """The (9, R, N) outbox the step left on the device for this tick
-        handle — a view of the step's own output (never the host copy), or
-        for the python backend the host arrays — cached on the handle so
-        every receiver shares it."""
-        src = h.get("_route_src")
-        if src is not None:
-            return src
-        mode = h["mode"]
-        if mode == "sparse":
-            src = h["ov"]  # the sparse step's dense (9, P, N) outbox
-        else:
-            # Dense: the (10, P) mirror then the (9, P, N) outbox; active:
-            # the (13, k) mirror then the compact (9, k, N) outbox, rows
-            # aligned with h["G"].
-            rows, cut = ((self.P, 10 * self.P) if mode == "dense"
-                         else (h["k"], _MIRROR13_ROWS * h["k"]))
-            src = h["dev_flat"][cut:].reshape(9, rows, self.N)
-        if self.backend == "python":
-            src = src.cpu().numpy()
-        h["_route_src"] = src
-        return src
+        handle (the step runner's ``ov``, never the host copy; rows aligned
+        with ``h["G"]`` on an active tick); numpy for the python backend."""
+        ov = h["ov"]
+        return ov.cpu().numpy() if self.backend == "python" else ov
 
     def _stage_kinds(self, sender, slot, gs, kinds_col, terms_col):
         """Host mirrors of one push: the receiver's staged (P, N) kind

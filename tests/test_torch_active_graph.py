@@ -1,5 +1,5 @@
-"""PyTorch port, the active set's captured graphs (``raft/step_graph.py``
-:class:`ActiveGraphs`) on the host.
+"""PyTorch port, the active set's captured graphs (``raft/step_runner.py``
+:class:`GraphCache`) on the host.
 
 On a card an active-set engine replays its compacted tick (gather, compact
 window step, decay-scatter) from one CUDA graph per ``(bucket, window)``.
@@ -16,7 +16,9 @@ change a group's members and reset a group between ticks, and run
 split-phase ticks, pipelined ticks at window 4 and a route fabric's routed
 planes (which run eager); the single-tick runs hold all-quiescent ticks
 while most groups are idle. The counters follow the key rule: a key's first dispatch eager, its
-second a capture, every later one a replay.
+second a capture, every later one a replay. Every captured graph of an
+engine, of the sparse step (its fallback ticks) and of the compacted tick,
+reads the one set of full-size input buffers.
 """
 
 from __future__ import annotations
@@ -48,21 +50,7 @@ class _ActiveCluster(_Cluster):
 
     def __init__(self, graphs: bool, monkeypatch, fabric: bool):
         super().__init__(graphs, monkeypatch, fabric, active_set=True)
-        self.active_keys = [[] for _ in IDS]
-        for e, keys in zip(self.engines, self.active_keys):
-            assert (e._active_graphs is not None) == graphs
-            if graphs:
-                self._log_active(e._active_graphs, keys)
-
-    @staticmethod
-    def _log_active(graphs, keys):
-        inner = graphs.runs_eager
-
-        def runs_eager(k, window, params, me, plane):
-            keys.append((k, window, plane is not None))
-            return inner(k, window, params, me, plane)
-
-        graphs.runs_eager = runs_eager
+        self.active_keys = [runs.setdefault("compacted", []) for runs in self.runs]
 
     def claim_busy_only(self, idle: bool):
         for e in self.engines:
@@ -124,7 +112,7 @@ def test_active_graph_engines_equal_eager_engines_every_tick(run, monkeypatch):
 
     graph = asyncio.run(main())
     for i, (e, keys) in enumerate(zip(graph.engines, graph.active_keys)):
-        ag = e._active_graphs
+        ag = e._runner.graphs.counts["compacted"]
         got = (ag.eager, ag.captures, ag.replays)
         assert got == _expected_counts(keys), (i, got)
         assert ag.captures and ag.replays, (i, got)
@@ -141,3 +129,8 @@ def test_active_graph_engines_equal_eager_engines_every_tick(run, monkeypatch):
             assert {k[1] for k in keys} >= {1, kw["window"]}
         if kw["fabric"]:
             assert any(k[2] for k in keys), "no routed plane"
+        # One set of full-size inputs (state leaves, member, peer_fresh)
+        # for every captured key of both programs.
+        captured = [(key[0], g) for key, g in e._runner.graphs._graphs.items() if g is not None]
+        assert {p for p, _ in captured} == {"sparse", "compacted"}, (i, [p for p, _ in captured])
+        assert len({tuple(t.data_ptr() for t in g.ins) for _, g in captured}) == 1, i

@@ -245,9 +245,9 @@ def test_uncached_window_builder_is_a_finding(tmp_path):
 
 
 @pytest.mark.parametrize("rel,old,new", [
-    ("raft/engine.py", "_active_window_fn(window)(", "_active_window_fn(len(G))("),
-    ("raft/engine.py", "sh.make_sharded_active_window(self._mesh, plan.k,",
-     "sh.make_sharded_active_window(self._mesh, len(G),"),
+    ("raft/step_runner.py", "_active_window_fn(window),", "_active_window_fn(len(G)),"),
+    ("raft/step_runner.py", "sh.make_sharded_active_window(self.mesh, plan.k,",
+     "sh.make_sharded_active_window(self.mesh, len(G),"),
     ("raft/route.py", "make_sharded_route_scatter(self.mesh, B,",
      "make_sharded_route_scatter(self.mesh, len(gs),"),
 ], ids=["engine", "engine-sharded", "route-sharded"])

@@ -524,10 +524,10 @@ async def test_routed_cluster_equals_host_only(ring, kw):
 
 
 def test_route_scatter_reads_the_step_output(monkeypatch):
-    """The route scatter's source is the sender step's own output tensor
-    (``dev_flat`` or the sparse step's ``ov``, a view into the same
-    storage), and during the route only index vectors (and the capped rows'
-    values) cross from the host: the outbox is never uploaded."""
+    """The route scatter's source is the sender step's own outbox (the
+    handle's ``ov``, on the device), and during the route only index
+    vectors (and the capped rows' values) cross from the host: the outbox is
+    never uploaded."""
     seen, uploads = [], []
 
     def spy_scatter(plane, src_ov, srows, gids, dst, me):
@@ -547,7 +547,7 @@ def test_route_scatter_reads_the_step_output(monkeypatch):
             inner = e.tick_finish
 
             def finish(h, inner=inner):
-                outputs.append(h["ov"] if h["mode"] == "sparse" else h["dev_flat"])
+                outputs.append(h["ov"])
                 return inner(h)
             e.tick_finish = finish
         for _ in range(20):

@@ -1,5 +1,5 @@
-"""PyTorch port, the sparse step's captured graphs (``raft/step_graph.py``)
-on the host.
+"""PyTorch port, the sparse step's captured graphs (``raft/step_runner.py``
+:class:`GraphCache`) on the host.
 
 An engine replays its single-card sparse step from CUDA graphs only on a
 card. Here a stand-in for the card's capture (:func:`host_capture`) keeps
@@ -26,7 +26,7 @@ import pytest
 
 from josefine_tpu_torch import interop
 from josefine_tpu_torch.models.types import NodeState, step_params
-from josefine_tpu_torch.raft import step_graph
+from josefine_tpu_torch.raft import step_runner
 from josefine_tpu_torch.raft.engine import RaftEngine
 from josefine_tpu_torch.raft.route import RouteFabric
 from josefine_tpu_torch.utils.kv import MemKV
@@ -78,14 +78,15 @@ def _retrieve(fut):
 class _Cluster:
     """Three sparse-IO engines on the CPU (``engine_kw`` to each), fed and
     delivered alike; with ``graphs`` their captures go through
-    :func:`host_capture`, and each engine's sparse dispatch keys are logged
-    as ``(K, k_out, window, routed)``."""
+    :func:`host_capture`, and each engine's runs of its graph cache are
+    logged per program as ``(*shape key, routed)``: the sparse step's
+    ``(K, k_out, window, routed)``."""
 
     def __init__(self, graphs: bool, monkeypatch, fabric: bool, **engine_kw):
         self.fsms = [{g: _ListFsm() for g in (0, 1)} for _ in IDS]
         with monkeypatch.context() as m:
             if graphs:
-                m.setattr(step_graph, "capture_for", lambda device: host_capture)
+                m.setattr(step_runner, "capture_for", lambda device: host_capture)
             self.engines = [
                 RaftEngine(MemKV(), IDS, IDS[i], groups=P, fsms=self.fsms[i], base_seed=i,
                            params=step_params(timeout_min=3, timeout_max=8, hb_ticks=8,
@@ -99,21 +100,22 @@ class _Cluster:
                 self.fabric.register(e)
         for e in self.engines:
             e._k_out = 4
-        self.keys = [[] for _ in IDS]
+        self.runs = [{} for _ in IDS]
         for i, e in enumerate(self.engines):
-            assert (e._step_graphs is not None) == graphs
+            assert (e._runner.graphs is not None) == graphs
             if graphs:
-                self._log(e._step_graphs, self.keys[i])
+                self._log(e._runner.graphs, self.runs[i])
+        self.keys = [runs.setdefault("sparse", []) for runs in self.runs]
 
     @staticmethod
-    def _log(graphs, keys):
-        inner = graphs.dispatch
+    def _log(graphs, runs):
+        inner = graphs.run
 
-        def dispatch(k_out, window, params, member, me, state, pf, idx, vals, plane, prof):
-            keys.append((len(idx), k_out, window, plane is not None))
-            return inner(k_out, window, params, member, me, state, pf, idx, vals, plane, prof)
+        def run(key, body, inputs, plane, prof):
+            runs.setdefault(key[0], []).append((*key[1:], plane is not None))
+            return inner(key, body, inputs, plane, prof)
 
-        graphs.dispatch = dispatch
+        graphs.run = run
 
     def round(self, window, pipelined):
         es = self.engines
@@ -224,7 +226,7 @@ def test_graph_engines_equal_eager_engines_every_tick(run, monkeypatch):
 
     graph = asyncio.run(main())
     for i, (e, keys) in enumerate(zip(graph.engines, graph.keys)):
-        sg = e._step_graphs
+        sg = e._runner.graphs.counts["sparse"]
         got = (sg.eager, sg.captures, sg.replays)
         assert got == _expected_counts(keys), (i, got)
         assert sg.captures and sg.replays, (i, got)
